@@ -10,8 +10,11 @@ ctypes; see ``ops/cuda``). It imports neither ``jax`` nor
 
 Ported so far: NDT scan-to-map tracking (``pipeline.front_end``: voxel
 downsample -> coarse-to-fine NDT alignment -> keyframe static weighting ->
-incremental voxel-Gaussian map maintenance) and its one kernel, the fused
-NDT score/gradient/Hessian reduction.
+incremental voxel-Gaussian map maintenance) with the fused NDT
+score/gradient/Hessian reduction (K1) and the stat gather by key of
+``gather="onehot"`` (K3); and the A-LOAM front end (``pipeline.aloam``:
+feature extraction -> frame-to-frame odometry -> scan-to-map mapping ->
+map fold) with exact gated k-NN over a bucket grid (K2).
 """
 
 import torch

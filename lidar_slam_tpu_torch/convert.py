@@ -1,10 +1,11 @@
 """Carry state across from the JAX package to the port.
 
-The functions take the JAX package's `NDTMap` / `NDTMapSums` leaves as numpy
-arrays (the caller does `np.asarray` on the JAX side) and its `NDTConfig`
-fields as plain Python values, and return the port's objects. This module
-never imports jax: it lets one map, built once, be evaluated by both
-packages, so derivative parity is tested apart from map-build parity.
+The functions take the JAX package's `NDTMap` / `NDTMapSums` / `AloamState`
+leaves as numpy arrays (the caller does `np.asarray` on the JAX side) and
+its config fields as plain Python values, and return the port's objects.
+This module never imports jax: it lets one map or pipeline state, built
+once, be stepped by both packages, so each stage's parity is tested apart
+from the stages before it.
 """
 
 from __future__ import annotations
@@ -12,18 +13,23 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .models.registration import NDTConfig, NDTMap, NDTMapSums
+from .models.registration import NDTMap, NDTMapSums
+from .ops.pointcloud import PointCloud
+from .pipeline.aloam import AloamState
 
 
 def _t(a, dtype, device):
     return torch.as_tensor(np.array(a), dtype=dtype).to(device).contiguous()
 
 
-def ndt_config_from_fields(fields: dict) -> NDTConfig:
-    """NDTConfig from the JAX config's fields (`dataclasses.asdict`)."""
+def config_from_fields(cls, fields: dict):
+    """The port's config class `cls` (NDTConfig, FeatureExtractionConfig,
+    AloamOdometryConfig, AloamMappingConfig) from the JAX config's fields
+    (`dataclasses.asdict`)."""
     fields = dict(fields)
-    fields["grid_dims"] = tuple(int(d) for d in fields["grid_dims"])
-    return NDTConfig(**fields)
+    if "grid_dims" in fields:
+        fields["grid_dims"] = tuple(int(d) for d in fields["grid_dims"])
+    return cls(**fields)
 
 
 def ndt_map_from_numpy(
@@ -53,4 +59,29 @@ def ndt_sums_from_numpy(origin, count, psum, ppsum, wsum, dims, resolution, devi
         wsum=_t(wsum, torch.float32, device),
         dims=tuple(int(d) for d in dims),
         resolution=float(resolution),
+    )
+
+
+def _cloud(points, mask, device=None) -> PointCloud:
+    return PointCloud(points=_t(points, torch.float32, device), mask=_t(mask, torch.bool, device))
+
+
+def aloam_state_from_numpy(
+    prev_less_sharp, prev_less_sharp_ring, prev_less_flat, prev_less_flat_ring,
+    T_rel, T_world, T_map_odom, corner_map, surf_map, has_prev, map_init, device=None,
+) -> AloamState:
+    """The port's AloamState from the JAX one's leaves, in its field order;
+    each cloud is a (points, mask) pair."""
+    return AloamState(
+        prev_less_sharp=_cloud(*prev_less_sharp, device=device),
+        prev_less_sharp_ring=_t(prev_less_sharp_ring, torch.int32, device),
+        prev_less_flat=_cloud(*prev_less_flat, device=device),
+        prev_less_flat_ring=_t(prev_less_flat_ring, torch.int32, device),
+        T_rel=_t(T_rel, torch.float32, device),
+        T_world=_t(T_world, torch.float32, device),
+        T_map_odom=_t(T_map_odom, torch.float32, device),
+        corner_map=_cloud(*corner_map, device=device),
+        surf_map=_cloud(*surf_map, device=device),
+        has_prev=_t(has_prev, torch.bool, device),
+        map_init=_t(map_init, torch.bool, device),
     )

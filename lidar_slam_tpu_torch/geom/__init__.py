@@ -1,6 +1,7 @@
 from .se3 import (
     se3_exp,
     se3_log,
+    so3_hat,
     euler_xyz_to_matrix,
     matrix_to_euler_xyz,
     make_pose,
@@ -11,6 +12,7 @@ from .se3 import (
 __all__ = [
     "se3_exp",
     "se3_log",
+    "so3_hat",
     "euler_xyz_to_matrix",
     "matrix_to_euler_xyz",
     "make_pose",

@@ -63,7 +63,8 @@ class NDTConfig:
     stencil: str = "radius27"
     # 'two_level' = the plain PyTorch reduction on any device; 'fused' and
     # 'auto' = kernel K1 on CUDA tensors (its plain version on CPU tensors);
-    # 'onehot' = the TPU one-hot gather kernel, not ported
+    # 'onehot' = the plain reduction with its stats fetched by key through
+    # kernel K3 (its plain version on CPU tensors)
     gather: str = "two_level"
     dense_stats: bool = True
     fused_window: int = 2048
@@ -77,15 +78,9 @@ class NDTConfig:
     def resolve_gather(self, device) -> str:
         """The derivative path for tensors on `device`: 'fused' on CUDA
         for gather in ('fused', 'auto'), else the requested path."""
-        if self.gather == "onehot":
-            raise NotImplementedError(
-                "gather='onehot' is the TPU gather kernel K3 "
-                "(lidar_slam_tpu/ops/pallas/ndt_reduce.py::gather_stats_onehot), "
-                "which is not ported yet; use 'fused', 'auto' or 'two_level'"
-            )
         if self.gather == "auto":
             return "fused" if torch.device(device).type == "cuda" else "two_level"
-        if self.gather not in ("fused", "two_level"):
+        if self.gather not in ("fused", "two_level", "onehot"):
             raise ValueError(f"unknown gather mode {self.gather!r}")
         return self.gather
 
@@ -576,9 +571,10 @@ def _reduce(ndt_map: NDTMap, points, mask, weights, pose, config: NDTConfig, com
         dims=ndt_map.dims, resolution=ndt_map.resolution, d1=float(_f32(d1)), d2=float(_f32(d2)),
         stencil=config.stencil, weight_derivatives=config.weight_derivatives,
     )
-    if gather == "two_level":
-        return ndt_reduce_plain(*args, compute_hessian=compute_hessian, chunk=config.point_chunk, **kw)
-    return ndt_reduce_fused(*args, **kw)
+    if gather == "fused":
+        return ndt_reduce_fused(*args, **kw)
+    keys = ndt_map.keys if gather == "onehot" else None
+    return ndt_reduce_plain(*args, compute_hessian=compute_hessian, chunk=config.point_chunk, keys=keys, **kw)
 
 
 def ndt_derivatives(

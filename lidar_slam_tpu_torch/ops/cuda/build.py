@@ -71,6 +71,19 @@ def build(stem: str) -> BuildInfo:
     return BuildInfo(lib, seconds, log)
 
 
+def check_tensor(name, a, dtype, dev, shape=None):
+    """Raise unless `a` is a contiguous `dtype` tensor on `dev` (of `shape`):
+    what a kernel's pointer argument needs."""
+    if a.device != dev:
+        raise ValueError(f"{name} is on {a.device}, expected {dev}")
+    if a.dtype != dtype:
+        raise ValueError(f"{name} has dtype {a.dtype}, expected {dtype}")
+    if not a.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if shape is not None and tuple(a.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(a.shape)}, expected {tuple(shape)}")
+
+
 _LIBS: dict = {}
 
 

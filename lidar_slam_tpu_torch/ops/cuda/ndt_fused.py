@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from . import build
+from .ndt_gather import gather_stats_onehot
 
 NOUT = 32
 UNRESOLVED = 28
@@ -105,9 +106,13 @@ def _flat_vid(coords, dims):
 def ndt_reduce_plain(
     points, mask, weights, index, packed, origin, R, t, jang, hang, *,
     dims, resolution, d1, d2, stencil, weight_derivatives,
-    compute_hessian: bool = True, chunk: int = 8192,
+    compute_hessian: bool = True, chunk: int = 8192, keys=None,
 ):
-    """Plain PyTorch version of K1 (any device): returns the [32] sums."""
+    """Plain PyTorch version of K1 (any device): returns the [32] sums.
+
+    The stats rows come through the dense `index`, or, when the map's
+    compact-row `keys` are given, by key through K3 (the JAX package's
+    `gather="onehot"` fetch; the rows fetched are the same)."""
     dev = points.device
     # small host constants: copied without a stream synchronisation
     R, t, jang, hang, origin_t = (
@@ -134,7 +139,10 @@ def ndt_reduce_plain(
         cand = cell[:, None, :] + offsets[None, :, :]  # [C, S, 3]
         inb = torch.all((cand >= 0) & (cand < dims_t), dim=-1)
         vid = torch.where(inb, _flat_vid(cand, dims), 0)
-        pk = packed[index[vid.long()].long()]  # [C, S, 16]
+        if keys is None:
+            pk = packed[index[vid.long()].long()]  # [C, S, 16]
+        else:
+            pk = gather_stats_onehot(keys, packed, torch.where(inb, vid, -2))
         mu = pk[..., 0:3]
         sv = pk[..., 3]
         ixx, ixy, ixz = pk[..., 4], pk[..., 5], pk[..., 6]
@@ -197,17 +205,6 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _check(name, a, dtype, dev, shape=None):
-    if a.device != dev:
-        raise ValueError(f"{name} is on {a.device}, expected {dev}")
-    if a.dtype != dtype:
-        raise ValueError(f"{name} has dtype {a.dtype}, expected {dtype}")
-    if not a.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    if shape is not None and tuple(a.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(a.shape)}, expected {tuple(shape)}")
-
-
 def ndt_reduce_fused(
     points, mask, weights, index, packed, origin, R, t, jang, hang, *,
     dims, resolution, d1, d2, stencil, weight_derivatives,
@@ -230,11 +227,11 @@ def ndt_reduce_fused(
     if stencil not in STENCIL_OFFSETS:
         raise ValueError(f"unknown stencil {stencil!r}")
     n = points.shape[0]
-    _check("points", points, torch.float32, dev, (n, 3))
-    _check("mask", mask, torch.bool, dev, (n,))
-    _check("weights", weights, torch.float32, dev, (n,))
-    _check("index", index, torch.int32, dev, (dims[0] * dims[1] * dims[2],))
-    _check("packed", packed, torch.float32, dev)
+    build.check_tensor("points", points, torch.float32, dev, (n, 3))
+    build.check_tensor("mask", mask, torch.bool, dev, (n,))
+    build.check_tensor("weights", weights, torch.float32, dev, (n,))
+    build.check_tensor("index", index, torch.int32, dev, (dims[0] * dims[1] * dims[2],))
+    build.check_tensor("packed", packed, torch.float32, dev)
     if packed.ndim != 2 or packed.shape[1] != 16 or packed.data_ptr() % 16:
         raise ValueError("packed must be a 16-byte aligned [C+1, 16] table")
 

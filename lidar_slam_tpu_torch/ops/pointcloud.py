@@ -39,6 +39,14 @@ class PointCloud:
             return torch.ones(self.points.shape[:-1], dtype=self.points.dtype, device=self.points.device)
         return self.weights
 
+    def permute(self, order) -> "PointCloud":
+        """Reorder all channels (incl. weights) by an index tensor."""
+        return PointCloud(
+            points=self.points[order],
+            mask=self.mask[order],
+            weights=None if self.weights is None else self.weights[order],
+        )
+
     @staticmethod
     def from_points(points, weights=None, capacity: Optional[int] = None, device=None):
         points = torch.as_tensor(points, dtype=torch.float32, device=device)

@@ -200,7 +200,7 @@ class TestMapSide:
         ts = port_sums_of(js)
         for k in ("origin", "count", "psum", "ppsum", "wsum"):
             np.testing.assert_array_equal(_np(getattr(ts, k)), np.asarray(getattr(js, k)), err_msg=k)
-        cfg = convert.ndt_config_from_fields(dataclasses.asdict(CFG_J))
+        cfg = convert.config_from_fields(tndt.NDTConfig, dataclasses.asdict(CFG_J))
         assert cfg == CFG_T
 
 
@@ -227,11 +227,17 @@ class TestAlignSide:
             )
 
     def test_onehot_gather_raises(self):
+        """gather="onehot" fetches the same rows by key (K3's plain version
+        on the CPU), so its sums equal two_level's; an unknown mode raises."""
         pts = make_scene(5, 30, seed=0)
         m = tndt.build_ndt_map(TCloud.from_points(pts), CFG_T, origin=ORIGIN)
-        cfg = dataclasses.replace(CFG_T, gather="onehot")
-        with pytest.raises(NotImplementedError, match="K3"):
-            tndt.ndt_derivatives(m, _t(pts), torch.ones(len(pts), dtype=torch.bool), np.zeros(6, np.float32), cfg)
+        args = (m, _t(pts), torch.ones(len(pts), dtype=torch.bool), np.zeros(6, np.float32))
+        onehot = tndt.ndt_derivatives(*args, dataclasses.replace(CFG_T, gather="onehot"))
+        two_level = tndt.ndt_derivatives(*args, CFG_T)
+        for a, b in zip(onehot, two_level):
+            np.testing.assert_array_equal(_np(a), _np(b))
+        with pytest.raises(ValueError, match="gather"):
+            tndt.ndt_derivatives(*args, dataclasses.replace(CFG_T, gather="sorted"))
 
     @pytest.mark.parametrize("stencil", ["direct7", "radius27"])
     @pytest.mark.parametrize("weight_derivatives", [True, False])

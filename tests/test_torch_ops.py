@@ -43,7 +43,9 @@ class TestPlumbing:
     def test_import_leaves_jax_out(self):
         code = (
             "import sys, lidar_slam_tpu_torch, lidar_slam_tpu_torch.pipeline, "
-            "lidar_slam_tpu_torch.convert, lidar_slam_tpu_torch.io; "
+            "lidar_slam_tpu_torch.pipeline.aloam, lidar_slam_tpu_torch.ops.hashgrid, "
+            "lidar_slam_tpu_torch.ops.linalg3, lidar_slam_tpu_torch.ops.cuda.knn_fused, "
+            "lidar_slam_tpu_torch.ops.cuda.ndt_gather, lidar_slam_tpu_torch.convert, lidar_slam_tpu_torch.io; "
             "print(sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'lidar_slam_tpu' or m.startswith('lidar_slam_tpu.')))"
         )
