@@ -10,11 +10,16 @@ ctypes; see ``ops/cuda``). It imports neither ``jax`` nor
 
 Ported so far: NDT scan-to-map tracking (``pipeline.front_end``: voxel
 downsample -> coarse-to-fine NDT alignment -> keyframe static weighting ->
-incremental voxel-Gaussian map maintenance) with the fused NDT
-score/gradient/Hessian reduction (K1) and the stat gather by key of
-``gather="onehot"`` (K3); and the A-LOAM front end (``pipeline.aloam``:
-feature extraction -> frame-to-frame odometry -> scan-to-map mapping ->
-map fold) with exact gated k-NN over a bucket grid (K2).
+incremental voxel-Gaussian map maintenance), where each clamped-Newton
+alignment is one launch of the ``ndt_newton`` kernel and the fused NDT
+score/gradient/Hessian reduction (K1) serves single evaluations and the
+line-search host loop, with the stat gather by key of ``gather="onehot"``
+(K3); and the A-LOAM front end (``pipeline.aloam``: feature extraction ->
+frame-to-frame odometry -> scan-to-map mapping -> map fold) with exact
+gated k-NN over a bucket grid (K2).
+
+Entry points run on the card: ``device(None)`` is CUDA and raises without
+it; the CPU is used only when a caller passes ``device="cpu"``.
 """
 
 import torch
@@ -32,13 +37,11 @@ __version__ = "0.1.0"
 def device(name=None) -> torch.device:
     """The torch device to run on.
 
-    `name=None` picks the first CUDA device when one is present, else the
-    CPU. An explicit CUDA name never falls back: it raises when CUDA is not
-    available.
+    `name=None` means the first CUDA device. Nothing falls back to the CPU:
+    without CUDA, `None` and every CUDA name raise, and the CPU is used only
+    when the caller asks for it (`device="cpu"`, as the CPU tests do).
     """
-    if name is None:
-        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
-    dev = torch.device(name)
+    dev = torch.device("cuda" if name is None else name)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {name!r} requested but CUDA is not available")
     return dev

@@ -6,6 +6,7 @@ leading dims where noted and safe at the identity (Taylor guards).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _EPS = 1e-8
@@ -122,10 +123,15 @@ def euler_xyz_to_matrix(rx, ry, rz):
 
 
 def matrix_to_euler_xyz(R):
-    """Inverse of euler_xyz_to_matrix -> (rx, ry, rz)."""
-    ry = torch.arcsin(torch.clamp(R[..., 0, 2], -1.0, 1.0))
-    rx = torch.atan2(-R[..., 1, 2], R[..., 2, 2])
-    rz = torch.atan2(-R[..., 0, 1], R[..., 0, 0])
+    """Inverse of euler_xyz_to_matrix -> (rx, ry, rz), for a torch tensor
+    or a numpy array (whose result stays numpy, of its dtype)."""
+    if isinstance(R, torch.Tensor):
+        asin, clip, atan2 = torch.arcsin, torch.clamp, torch.atan2
+    else:
+        asin, clip, atan2 = np.arcsin, np.clip, np.arctan2
+    ry = asin(clip(R[..., 0, 2], -1.0, 1.0))
+    rx = atan2(-R[..., 1, 2], R[..., 2, 2])
+    rz = atan2(-R[..., 0, 1], R[..., 0, 0])
     return rx, ry, rz
 
 

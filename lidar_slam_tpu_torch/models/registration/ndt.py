@@ -7,13 +7,17 @@ the derivative kernel reads: a dense `[V]` int32 `index` into a compact
 `[C+1, 16]` `packed` stats table, with the occupied voxels' flat ids in
 ascending `keys`.
 
-Align side: the derivative evaluation (score, gradient, Hessian) is kernel
-K1 (`ops/cuda/ndt_fused.py`) on CUDA tensors and its plain PyTorch version
-on CPU tensors. The clamped-Newton loop runs on the HOST: each derivative
-evaluation is one K1 launch plus one device-to-host copy of its 32 sums
-(that copy is also the convergence sync); the 6x6 LDL^T solve, the step
-clamp, the convergence test and the pose update run in float32 numpy. The
-JAX package runs the same loop as a device `lax.while_loop`.
+Align side: with the fused gather, the Newton solver and no line-search
+iterations (every tracking configuration), the whole clamped-Newton
+alignment is one launch of the `ndt_newton` kernel (`ops/cuda/
+ndt_newton.py`) on CUDA tensors, or its plain PyTorch version on CPU
+tensors, and one copy of its result to the host: the counterpart of the
+JAX package's device `lax.while_loop`. Every other configuration runs the
+loop on the HOST (`ndt_align_host_loop`): each derivative evaluation is one
+reduction (kernel K1, `ops/cuda/ndt_fused.py`, or its plain version) plus
+one device-to-host copy of its 32 sums, and the 6x6 LDL^T solve, the step
+clamp, the More-Thuente line search, the convergence test and the pose
+update run in float32 numpy.
 
 Pose parameterization as in the reference: p = (tx, ty, tz, roll, pitch,
 yaw) with R = Rx(roll) Ry(pitch) Rz(yaw).
@@ -33,6 +37,7 @@ import numpy as np
 import torch
 
 from ...geom.se3 import euler_xyz_to_matrix, make_pose, matrix_to_euler_xyz
+from ...ops.cuda import ndt_newton as _newton
 from ...ops.cuda.ndt_fused import ndt_reduce_fused, ndt_reduce_plain, unpack_results
 from ...ops.eigh3 import sym_eigh3
 from ...ops.pointcloud import PointCloud, scatter_sum
@@ -62,7 +67,8 @@ class NDTConfig:
     # 'direct7' = centre + 6 face neighbours, ungated
     stencil: str = "radius27"
     # 'two_level' = the plain PyTorch reduction on any device; 'fused' and
-    # 'auto' = kernel K1 on CUDA tensors (its plain version on CPU tensors);
+    # 'auto' = the kernels on CUDA tensors (ndt_newton for a whole Newton
+    # alignment, K1 for one evaluation), their plain versions on CPU tensors;
     # 'onehot' = the plain reduction with its stats fetched by key through
     # kernel K3 (its plain version on CPU tensors)
     gather: str = "two_level"
@@ -116,13 +122,15 @@ class NDTMap:
 @dataclasses.dataclass
 class NDTResult:
     pose: torch.Tensor  # [4, 4] host float32
-    trans_probability: torch.Tensor  # score / n_valid_points (on the points' device)
+    # score / n_valid_points: on the host from ndt_newton, on the points'
+    # device from the host loop (no extra synchronisation either way)
+    trans_probability: torch.Tensor
     score: float
     iterations: int
     converged: bool
     gradient: torch.Tensor  # [6] host, at the solution
     hessian: torch.Tensor  # [6, 6] host, at the solution
-    # K1 gathers directly, so no derivative term is ever dropped: always 0.
+    # The kernels gather directly, so no derivative term is ever dropped: always 0.
     # Kept so callers keep the exactness check of the JAX package.
     unresolved: float = 0.0
 
@@ -473,80 +481,37 @@ def _condition_rows(count, mean, cov, staticvalue, config: NDTConfig):
 
 
 # ---------------------------------------------------------------------------
-# align side: host-side pose coefficients, K1 evaluations, host Newton loop
+# align side: the ndt_newton kernel, or host-side pose coefficients, K1
+# evaluations and the host Newton loop
 
 
-def _angle_jacobian_tensors(pose):
-    """The eight j_ang and fifteen h_ang vectors of computeAngleDerivatives
-    (NormalDistributionsTransform.cpp:525-645) as jang [3(angle), 3(row),
-    3(dot with x)] and hang [3, 3, 3(component), 3(dot with x)].
+def _pose_coefficients(pose):
+    """R [3, 3], jang [3(angle), 3(row), 3(dot with x)] and hang [3, 3,
+    3(component), 3(dot with x)] of the pose [6]: the rotation Rx Ry Rz
+    (se3.euler_xyz_to_matrix) and the eight j_ang and fifteen h_ang vectors
+    of computeAngleDerivatives (NormalDistributionsTransform.cpp:525-645),
+    angles below 1e-4 snapped to exactly 0 there (cpp:528-548). The
+    expressions are `ndt_newton.coefficient_terms`, the kernel's own.
 
     Host-side float32 numpy on purpose: it runs once per Newton evaluation
     on the host, where ~100 torch CPU scalar ops would cost more than the
-    kernel itself. Angles below 1e-4 snap to exactly 0 (cpp:528-548)."""
+    kernel itself."""
     p = np.asarray(pose, _f32).reshape(6)
-
-    def cs(a):
-        if abs(a) < 1e-4:
-            return _f32(1.0), _f32(0.0)
-        return np.cos(a), np.sin(a)
-
-    cx, sx = cs(p[3])
-    cy, sy = cs(p[4])
-    cz, sz = cs(p[5])
-    z3 = _f32(0.0)
-    zero3 = [z3, z3, z3]
-
-    j_a = [-sx * sz + cx * sy * cz, -sx * cz - cx * sy * sz, -cx * cy]
-    j_b = [cx * sz + sx * sy * cz, cx * cz - sx * sy * sz, -sx * cy]
-    j_c = [-sy * cz, sy * sz, cy]
-    j_d = [sx * cy * cz, -sx * cy * sz, sx * sy]
-    j_e = [-cx * cy * cz, cx * cy * sz, -cx * sy]
-    j_f = [-cy * sz, -cy * cz, z3]
-    j_g = [cx * cz - sx * sy * sz, -cx * sz - sx * sy * cz, z3]
-    j_h = [sx * cz + cx * sy * sz, cx * sy * cz - sx * sz, z3]
-    jang = np.asarray([[zero3, j_a, j_b], [j_c, j_d, j_e], [j_f, j_g, j_h]], _f32)
-
-    h_a2 = [-cx * sz - sx * sy * cz, -cx * cz + sx * sy * sz, sx * cy]
-    h_a3 = [-sx * sz + cx * sy * cz, -cx * sy * sz - sx * cz, -cx * cy]
-    h_b2 = [cx * cy * cz, -cx * cy * sz, cx * sy]
-    h_b3 = [sx * cy * cz, -sx * cy * sz, sx * sy]
-    h_c2 = [-sx * cz - cx * sy * sz, sx * sz - cx * sy * cz, z3]
-    h_c3 = [cx * cz - sx * sy * sz, -sx * sy * cz - cx * sz, z3]
-    h_d1 = [-cy * cz, cy * sz, sy]
-    h_d2 = [-sx * sy * cz, sx * sy * sz, sx * cy]
-    h_d3 = [cx * sy * cz, -cx * sy * sz, -cx * cy]
-    h_e1 = [sy * sz, sy * cz, z3]
-    h_e2 = [-sx * cy * sz, -sx * cy * cz, z3]
-    h_e3 = [cx * cy * sz, cx * cy * cz, z3]
-    h_f1 = [-cy * cz, cy * sz, z3]
-    h_f2 = [-cx * sz - sx * sy * cz, -cx * cz + sx * sy * sz, z3]
-    h_f3 = [-sx * sz + cx * sy * cz, -cx * sy * sz - sx * cz, z3]
-
-    va = [zero3, h_a2, h_a3]
-    vb = [zero3, h_b2, h_b3]
-    vc = [zero3, h_c2, h_c3]
-    vd = [h_d1, h_d2, h_d3]
-    ve = [h_e1, h_e2, h_e3]
-    vf = [h_f1, h_f2, h_f3]
-    hang = np.asarray([[va, vb, vc], [vb, vd, ve], [vc, ve, vf]], _f32)
-    return jang, hang
+    rot, snapped = [], []
+    for a in p[3:6]:
+        c, s = np.cos(a), np.sin(a)
+        rot += [c, s]
+        snapped += [_f32(1.0), _f32(0.0)] if abs(a) < _newton.ANGLE_SNAP else [c, s]
+    R, J, H = _newton.coefficient_terms(rot, snapped, _f32(0.0))
+    # J[(3r + a) * 3 + j] = jang[a, r, j]; H[(3k + r) * 3 + j] = hang[a_k, b_k, r, j]
+    jang = np.asarray(J, _f32).reshape(3, 3, 3).transpose(1, 0, 2)
+    hang = np.asarray(H, _f32).reshape(6, 3, 3)[np.asarray(_newton.PAIR_OF)]
+    return np.asarray(R, _f32).reshape(3, 3), jang, hang
 
 
-def _rotation(pose) -> np.ndarray:
-    """R = Rx Ry Rz of the pose's angles, host float32 (se3.euler_xyz_to_matrix)."""
-    p = np.asarray(pose, _f32)
-    ca, sa = np.cos(p[3]), np.sin(p[3])
-    cb, sb = np.cos(p[4]), np.sin(p[4])
-    cc, sc = np.cos(p[5]), np.sin(p[5])
-    return np.asarray(
-        [
-            [cb * cc, -cb * sc, sb],
-            [ca * sc + sa * sb * cc, ca * cc - sa * sb * sc, -sa * cb],
-            [sa * sc - ca * sb * cc, sa * cc + ca * sb * sc, ca * cb],
-        ],
-        _f32,
-    )
+def _angle_jacobian_tensors(pose):
+    """jang, hang of `_pose_coefficients`."""
+    return _pose_coefficients(pose)[1:]
 
 
 def _pose_to_matrix(pose) -> torch.Tensor:
@@ -555,18 +520,21 @@ def _pose_to_matrix(pose) -> torch.Tensor:
 
 
 def _matrix_to_pose(T) -> np.ndarray:
-    T = torch.as_tensor(T, dtype=torch.float32).cpu()
-    angles = torch.stack(matrix_to_euler_xyz(T[:3, :3]))
-    return torch.cat([T[:3, 3], angles]).numpy()
+    """(tx, ty, tz, roll, pitch, yaw) of a [4, 4] pose, host float32 (on a
+    numpy array, se3.matrix_to_euler_xyz takes microseconds)."""
+    if isinstance(T, torch.Tensor):
+        T = T.detach().cpu().numpy()
+    T = np.asarray(T, _f32)
+    return np.asarray([*T[:3, 3], *matrix_to_euler_xyz(T[:3, :3])], _f32)
 
 
 def _reduce(ndt_map: NDTMap, points, mask, weights, pose, config: NDTConfig, compute_hessian=True):
     """The [32] derivative sums at host pose `pose` [6], on the points' device."""
     gather = config.resolve_gather(points.device)
     d1, d2 = config.gauss_params()
-    jang, hang = _angle_jacobian_tensors(pose)
+    R, jang, hang = _pose_coefficients(pose)
     args = (points, mask, weights, ndt_map.index, ndt_map.packed, ndt_map.origin,
-            _rotation(pose), np.asarray(pose, _f32)[:3], jang, hang)
+            R, np.asarray(pose, _f32)[:3], jang, hang)
     kw = dict(
         dims=ndt_map.dims, resolution=ndt_map.resolution, d1=float(_f32(d1)), d2=float(_f32(d2)),
         stencil=config.stencil, weight_derivatives=config.weight_derivatives,
@@ -605,39 +573,13 @@ def ndt_derivatives(
 
 
 def _solve_newton(hessian, gradient) -> np.ndarray:
-    """delta = -H^-1 g by an unrolled 6x6 LDL^T solve, host float32 (the
+    """delta = -H^-1 g by the unrolled 6x6 LDL^T (`ndt_newton.ldlt_solve`,
+    the operation order the kernel follows too), host float32 (the
     reference's SVD solve agrees for a nonsingular symmetric H; LDL^T also
     handles the indefinite iterations NDT produces). Near-singular pivots
     give huge or non-finite deltas, which newton_align treats as converged."""
-    H = np.asarray(hessian, _f32)
-    g = np.asarray(gradient, _f32)
-    n = 6
-    L = [[None] * n for _ in range(n)]
-    D = [None] * n
     with np.errstate(all="ignore"):
-        for j in range(n):
-            s = H[j, j]
-            for k in range(j):
-                s = s - L[j][k] * L[j][k] * D[k]
-            D[j] = s
-            inv_d = _f32(1.0) / s
-            for i in range(j + 1, n):
-                t = H[i, j]
-                for k in range(j):
-                    t = t - L[i][k] * L[j][k] * D[k]
-                L[i][j] = t * inv_d
-        y = [None] * n
-        for i in range(n):
-            t = -g[i]
-            for k in range(i):
-                t = t - L[i][k] * y[k]
-            y[i] = t
-        x = [None] * n
-        for i in reversed(range(n)):
-            t = y[i] / D[i]
-            for k in range(i + 1, n):
-                t = t - L[k][i] * x[k]
-            x[i] = t
+        x = _newton.ldlt_solve(np.asarray(hessian, _f32), np.asarray(gradient, _f32), _f32(1.0))
     return np.asarray(x, _f32)
 
 
@@ -805,9 +747,51 @@ def ndt_align(
 ) -> NDTResult:
     """Align a source cloud to the NDT map starting from init_pose [4, 4].
 
-    Each derivative evaluation is one reduction on the source's device and
-    one copy of its 32 sums to the host. K1 gathers stats directly, so the
-    points need no spatial sort (the JAX package's sort_points_by_vid)."""
+    With the fused gather, solver="newton" and max_step_iterations == 0 the
+    whole alignment is one `ndt_newton` call on the source's device (the
+    kernel on CUDA tensors, its plain version on CPU tensors) and one copy
+    of its result to the host; otherwise the host loop runs. Neither needs
+    the points sorted (the JAX package's sort_points_by_vid)."""
+    pts = source.points
+    if not (
+        config.resolve_gather(pts.device) == "fused"
+        and config.solver == "newton"
+        and config.max_step_iterations == 0
+    ):
+        return ndt_align_host_loop(ndt_map, source, init_pose, config)
+    d1, d2 = config.gauss_params()
+    pose0 = torch.from_numpy(_matrix_to_pose(init_pose)).to(pts.device, non_blocking=True)
+    out = _newton.ndt_newton(
+        pts, source.mask, source.get_weights(), ndt_map.index, ndt_map.packed, ndt_map.origin, pose0,
+        dims=ndt_map.dims, resolution=ndt_map.resolution, d1=float(_f32(d1)), d2=float(_f32(d2)),
+        stencil=config.stencil, weight_derivatives=config.weight_derivatives, max_iter=config.max_iter,
+        trans_eps=config.trans_eps, step_size=config.step_size, score_rel_tol=config.score_rel_tol,
+    ).cpu().numpy()
+    score, grad, hess, _ = unpack_results(np.concatenate([out[_newton.SCORE:_newton.HESS.stop], [0.0]]))
+    pose = np.eye(4, dtype=_f32)
+    pose[:3, :3] = out[_newton.ROTATION].reshape(3, 3)
+    pose[:3, 3] = out[_newton.POSE][:3]
+    return NDTResult(
+        pose=torch.from_numpy(pose),
+        trans_probability=torch.as_tensor(score / max(out[_newton.N_VALID], _f32(1.0))),
+        score=float(score),
+        iterations=int(out[_newton.ITERATIONS]),
+        converged=bool(out[_newton.CONVERGED]),
+        gradient=torch.as_tensor(grad),
+        hessian=torch.as_tensor(hess),
+        unresolved=float(out[_newton.UNRESOLVED]),
+    )
+
+
+def ndt_align_host_loop(
+    ndt_map: NDTMap,
+    source: PointCloud,
+    init_pose,
+    config: NDTConfig = NDTConfig(),
+) -> NDTResult:
+    """`ndt_align` with the Newton loop on the host: each derivative
+    evaluation is one reduction on the source's device and one copy of its
+    32 sums to the host."""
     pts, mask, w = source.points, source.mask, source.get_weights()
 
     def derivs(pose, need_hessian):

@@ -3,8 +3,9 @@
 Each `csrc/<stem>.cu` has a plain C interface and is compiled into a shared
 library loaded with ctypes (no torch headers, so a build takes seconds).
 Libraries go under `build/kernels/` at the repository root, in a directory
-keyed by a hash of the source and the flags, so an edited source is rebuilt
-and a stale library is never loaded. Nothing is built at import time.
+keyed by a hash of the source, the shared headers (`csrc/*.cuh`) and the
+flags, so an edited source or header is rebuilt and a stale library is
+never loaded. Nothing is built at import time.
 """
 
 from __future__ import annotations
@@ -48,7 +49,8 @@ def _nvcc() -> str:
 def build(stem: str) -> BuildInfo:
     """Compile csrc/<stem>.cu into lib<stem>.so unless an identical build exists."""
     src = CSRC / f"{stem}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out_dir = BUILD_ROOT / f"{stem}-{digest}"
     lib = out_dir / f"lib{stem}.so"
     log_path = out_dir / "build.log"

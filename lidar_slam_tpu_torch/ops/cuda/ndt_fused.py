@@ -2,20 +2,24 @@
 
 `ndt_reduce_fused` replaces the Pallas TPU kernel
 `lidar_slam_tpu/ops/pallas/ndt_fused.py::ndt_reduce_fused` with the
-hand-written Hopper kernel `csrc/ndt_fused.cu` (one thread per source
-point, direct two-level gather, fixed-order block reduction; the source
-says what bounds it). On a CUDA tensor it launches that kernel or raises;
-on a CPU tensor, and only there, it runs `ndt_reduce_plain`, the plain
-PyTorch version of the same function (the XLA `two_level` math of
+hand-written Hopper kernel `csrc/ndt_fused.cu` (one launch: a grid-stride
+loop over (point, stencil offset) pairs, direct two-level gather, fixed-
+order block partials summed by the last block to finish; the source says
+what bounds it). On a CUDA tensor it launches that kernel or raises; on a
+CPU tensor, and only there, it runs `ndt_reduce_plain`, the plain PyTorch
+version of the same function (the XLA `two_level` math of
 `lidar_slam_tpu/models/registration/ndt.py::ndt_derivatives`, chunked over
 points). Both return the kernel's [32] layout: score, gradient[6], the 21
 upper-triangular Hessian entries (row-major, i <= j), `unresolved` (always
 0: the direct gather never drops a term) and 3 pad.
 
-Pose coefficients (R, t and the angle-derivative tensors jang [3, 3, 3],
-hang [3, 3, 3, 3] of `_angle_jacobian_tensors`) are host tensors: the
-Newton loop that produces them runs on the host, and the kernel receives
-them by value as launch arguments.
+This one-evaluation form serves `ndt_derivatives` and the host loop of the
+More-Thuente line search; the clamped-Newton alignment runs whole on the
+card (`ndt_newton.py`). Pose coefficients (R, t and the angle-derivative
+tensors jang [3, 3, 3], hang [3, 3, 3, 3] of `_angle_jacobian_tensors`) are
+host values for the kernel, which receives them by value as launch
+arguments; the plain version also takes them as tensors on the points'
+device.
 """
 
 from __future__ import annotations
@@ -99,6 +103,14 @@ def _pack_params(origin, R, t, jang, hang, dims, resolution, d1, d2, n, weight_d
     return _Params.from_buffer_copy(buf)
 
 
+def _const(name, a, dev) -> torch.Tensor:
+    """A small constant on `dev`: a tensor already there is used as it is,
+    a host value is copied without a stream synchronisation."""
+    if isinstance(a, torch.Tensor) and a.device == dev:
+        return a.to(torch.float32)
+    return torch.as_tensor(_host(name, a)).to(dev, non_blocking=True)
+
+
 def _flat_vid(coords, dims):
     return (coords[..., 0] * dims[1] + coords[..., 1]) * dims[2] + coords[..., 2]
 
@@ -114,10 +126,8 @@ def ndt_reduce_plain(
     compact-row `keys` are given, by key through K3 (the JAX package's
     `gather="onehot"` fetch; the rows fetched are the same)."""
     dev = points.device
-    # small host constants: copied without a stream synchronisation
     R, t, jang, hang, origin_t = (
-        torch.as_tensor(_host(k, a)).to(dev, non_blocking=True)
-        for k, a in (("R", R), ("t", t), ("jang", jang), ("hang", hang), ("origin", origin))
+        _const(k, a, dev) for k, a in (("R", R), ("t", t), ("jang", jang), ("hang", hang), ("origin", origin))
     )
     offsets = torch.as_tensor(STENCIL_OFFSETS[stencil]).to(dev, non_blocking=True)
     dims_t = torch.as_tensor(dims, dtype=torch.int32).to(dev, non_blocking=True)
@@ -196,10 +206,11 @@ def ndt_reduce_plain(
 def _library() -> ctypes.CDLL:
     lib = build.load("ndt_fused")
     if lib.ndt_fused_launch.argtypes is None:
-        lib.ndt_fused_blocks.argtypes = [ctypes.c_int]
+        lib.ndt_fused_blocks.argtypes = [ctypes.c_int, ctypes.c_int]
         lib.ndt_fused_blocks.restype = ctypes.c_int
         lib.ndt_fused_launch.argtypes = [ctypes.c_void_p] * 5 + [
-            ctypes.POINTER(_Params), ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.POINTER(_Params), ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ]
         lib.ndt_fused_launch.restype = ctypes.c_int
     return lib
@@ -227,6 +238,9 @@ def ndt_reduce_fused(
     if stencil not in STENCIL_OFFSETS:
         raise ValueError(f"unknown stencil {stencil!r}")
     n = points.shape[0]
+    n_off = len(STENCIL_OFFSETS[stencil])
+    if n * n_off >= 2**31:
+        raise ValueError(f"ndt_reduce_fused: {n} points x {n_off} offsets overflow the kernel's int pair index")
     build.check_tensor("points", points, torch.float32, dev, (n, 3))
     build.check_tensor("mask", mask, torch.bool, dev, (n,))
     build.check_tensor("weights", weights, torch.float32, dev, (n,))
@@ -237,14 +251,20 @@ def ndt_reduce_fused(
 
     params = _pack_params(origin, R, t, jang, hang, dims, resolution, d1, d2, n, weight_derivatives)
     lib = _library()
-    partials = torch.empty((lib.ndt_fused_blocks(n), NOUT), dtype=torch.float32, device=dev)
-    out = torch.empty(NOUT, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
+        blocks = lib.ndt_fused_blocks(n, n_off)
+        if blocks < 1:
+            raise RuntimeError("ndt_reduce_fused: the card's occupancy query failed")
+        # the [28, blocks] partials, then the last-block ticket: scratch of
+        # this call alone (the launch zeroes the ticket on its stream), so
+        # launches on other streams or in a graph never share a ticket
+        scratch = torch.empty(28 * blocks + 1, dtype=torch.float32, device=dev)
+        out = torch.empty(NOUT, dtype=torch.float32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.ndt_fused_launch(
             points.data_ptr(), mask.data_ptr(), weights.data_ptr(), index.data_ptr(),
-            packed.data_ptr(), ctypes.byref(params), len(STENCIL_OFFSETS[stencil]),
-            partials.data_ptr(), out.data_ptr(), stream,
+            packed.data_ptr(), ctypes.byref(params), n_off, blocks,
+            scratch.data_ptr(), scratch[28 * blocks:].data_ptr(), out.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(f"ndt_fused kernel launch failed: cudaError {err}")

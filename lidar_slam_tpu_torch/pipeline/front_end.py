@@ -10,8 +10,9 @@ PyTorch (port of lidar_slam_tpu/pipeline/front_end.py).
 
 The JAX package fuses each frame into one device program (`lax.scan` and
 `lax.cond`); here the per-frame control is a host loop and host `if`s,
-and the device work is torch ops plus kernel K1 inside the alignments.
-Poses live on the host (the Newton loop ends there anyway); clouds, maps
+and the device work is torch ops plus one `ndt_newton` launch for each
+alignment. Poses live on the host (each alignment's result is copied there
+once); clouds, maps
 and keyframe buffers live on the device. Keyframe map maintenance is
 deferred by one frame, as in the JAX package.
 
@@ -47,7 +48,8 @@ _f32 = np.float32
 class FrontEndConfig:
     """Operating point of config/mapping/front_end.yaml; the same fields and
     defaults as the JAX package's FrontEndConfig. `ndt.gather="auto"` runs
-    K1 for CUDA tensors and the plain reduction for CPU tensors."""
+    each alignment as one `ndt_newton` launch for CUDA tensors, and the host
+    loop over the plain reduction for CPU tensors."""
 
     ndt: NDTConfig = NDTConfig(gather="auto")
     raw_capacity: int = 131072
@@ -502,7 +504,7 @@ class FrontEnd:
             )
             self.kf_world[pend["slot"]] = world
             self._pending_update = None
-        # K1 gathers directly: the JAX package's exact-path fallback for
+        # the kernels gather directly: the JAX package's exact-path fallback for
         # dropped derivative terms can never trigger, so a non-zero count is
         # a bug, not a condition to handle
         if unresolved != 0.0:

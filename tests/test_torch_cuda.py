@@ -1,4 +1,5 @@
-"""The CUDA kernels K1 (csrc/ndt_fused.cu), K2 (csrc/knn_fused.cu) and K3
+"""The CUDA kernels K1 (csrc/ndt_fused.cu), the whole-alignment Newton
+kernel (csrc/ndt_newton.cu), K2 (csrc/knn_fused.cu) and K3
 (csrc/ndt_gather.cu) against their plain PyTorch versions on an NVIDIA GPU.
 Every test here needs the card and skips without one; the file imports no
 jax, so it also runs on a machine without it:
@@ -12,6 +13,18 @@ that is more: each entry sums ~1e5 float32 terms of both signs, and one
 that cancels to near zero keeps the rounding of the large terms (measured
 on an H100: 0.0125 on an entry of -0.64 beside entries of 1.5e3).
 
+The Newton kernel is held to its plain version's iteration count and
+flags and to 1e-4 on the pose where the alignment converges in a few
+steps. From a far start (8-16 iterations) the two may stop a step apart:
+they sum in different orders, the iterates carry that rounding from step
+to step, and the plain version alone, given its points in another order,
+moves by millimetres (tests/test_torch_newton.py::
+test_plain_order_sensitivity). There the poses are held to trans_eps and
+two iterations, and the kernel's score and Hessian at its own final pose
+to the plain sums at that pose at K1's tolerances; its gradient, whose
+entries cancel to near zero at an optimum and keep the sums' rounding,
+through the Newton step it makes, H^-1 (g - g_plain), within 1e-4.
+
 K2 and K3 are compared exactly: K2 computes each distance with the same
 float32 operations as its plain version (no FMA contraction) and breaks
 ties on the same row; K3 sums the same rows (one, or two in either order).
@@ -24,9 +37,10 @@ import pytest
 import torch
 
 from lidar_slam_tpu_torch.models.registration import NDTConfig, build_ndt_map
+from lidar_slam_tpu_torch.models.registration import ndt as tndt
 from lidar_slam_tpu_torch.models.registration.ndt import _reduce
 from lidar_slam_tpu_torch.ops import PointCloud, voxel_downsample
-from lidar_slam_tpu_torch.ops.cuda import knn_fused, ndt_fused, ndt_gather
+from lidar_slam_tpu_torch.ops.cuda import knn_fused, ndt_fused, ndt_gather, ndt_newton
 from lidar_slam_tpu_torch.ops.hashgrid import build_bucket_grid
 
 pytestmark = pytest.mark.cuda
@@ -119,6 +133,172 @@ def test_wrapper_rejects_bad_inputs(dev):
         _reduce(m, src, mask, w[:100], pose, CFG)
     with pytest.raises(ValueError):
         _reduce(m, src.t().contiguous().t(), mask, w, pose, CFG)
+
+
+def test_one_shot_kernel_is_one_launch(dev):
+    """K1's evaluation is one kernel launch (the last block sums the
+    partials), within the parity tolerances of its plain version."""
+    from torch.profiler import ProfilerActivity, profile
+
+    m, src, mask, w = _inputs(dev)
+    pose = np.asarray([0.1, -0.05, 0.02, 0.01, -0.01, 0.02], np.float32)
+    _reduce(m, src, mask, w, pose, CFG)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        k = _reduce(m, src, mask, w, pose, CFG)
+        torch.cuda.synchronize()
+    ours = [e for e in prof.key_averages() if "ndt_" in e.key]
+    assert [e.count for e in ours] == [1], [(e.key, e.count) for e in ours]
+    p = _reduce(m, src, mask, w, pose, dataclasses.replace(CFG, gather="two_level"))
+    _assert_parity(k.cpu().numpy(), p.cpu().numpy())
+
+
+def _newton_call(m, src, mask, w, pose, stencil):
+    d1, d2 = CFG.gauss_params()
+    kw = dict(dims=m.dims, resolution=m.resolution, d1=float(np.float32(d1)), d2=float(np.float32(d2)),
+              stencil=stencil, weight_derivatives=True, max_iter=CFG.max_iter, trans_eps=CFG.trans_eps,
+              step_size=CFG.step_size, score_rel_tol=0.0)
+    pose0 = torch.as_tensor(np.asarray(pose, np.float32), device=src.device)
+    return (src, mask, w, m.index, m.packed, m.origin, pose0), kw
+
+
+NEWTON_POSES = ([0.1, -0.05, 0.02, 0.01, -0.01, 0.02], [0.3, 0.2, -0.1, 0.05, 0.0, -0.03])
+
+
+def _align_scene(dev, stencil):
+    """tests/test_torch_newton.py's _fused_setup scene (the JAX tests'
+    blobs, a weighted 1024-point source, a 0.3 m first guess), where the
+    alignment converges in a few steps to one optimum."""
+    rng = np.random.default_rng(3)
+    centers = rng.uniform(-12, 12, size=(25, 3)).astype(np.float32)
+    centers[:, 2] = rng.uniform(-2, 4, size=25)
+    blobs = []
+    for c in centers:
+        A = rng.normal(size=(3, 3)) * np.array([0.3, 0.3, 0.05])
+        blobs.append(c + rng.normal(size=(50, 3)) @ A.astype(np.float32))
+    pts = np.concatenate(blobs).astype(np.float32)
+    cfg = NDTConfig(grid_dims=(32, 32, 16), stencil=stencil, max_compact_voxels=2048, gather="fused")
+    m = build_ndt_map(PointCloud.from_points(pts, device=dev), cfg, origin=np.float32([-16.0, -16.0, -8.0]))
+    rng = np.random.default_rng(5)
+    src = pts[rng.permutation(len(pts))[:1024]]
+    w = rng.uniform(0.2, 1.0, size=1024).astype(np.float32)
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    return m, t(src), torch.ones(1024, dtype=torch.bool, device=dev), t(w), [0.25, -0.15, 0.05, 0.0, 0.0, 0.0]
+
+
+@pytest.mark.parametrize("stencil", ["direct7", "radius27"])
+def test_newton_kernel_matches_plain(dev, stencil):
+    m, src, mask, w, pose = _align_scene(dev, stencil)
+    N = ndt_newton
+    args, kw = _newton_call(m, src, mask, w, pose, stencil)
+    before = N.launches
+    k = N.ndt_newton(*args, **kw).cpu().numpy()
+    assert N.launches == before + 1
+    p = N.ndt_newton_plain(*args, **kw).cpu().numpy()
+    assert N.launches == before + 1  # the plain path launches nothing
+    assert k[N.ITERATIONS] == p[N.ITERATIONS] and k[N.CONVERGED] == p[N.CONVERGED] == 1.0
+    np.testing.assert_allclose(k[N.POSE], p[N.POSE], rtol=0, atol=1e-4)
+    np.testing.assert_allclose(k[N.SCORE], p[N.SCORE], rtol=2e-4)
+    np.testing.assert_allclose(k[N.ROTATION], p[N.ROTATION], rtol=0, atol=1e-6)
+    assert k[N.N_VALID] == p[N.N_VALID] == 1024 and k[N.UNRESOLVED] == 0.0
+
+
+@pytest.mark.parametrize("stencil", ["direct7", "radius27"])
+def test_newton_kernel_from_far_starts(dev, stencil):
+    """The 5000-point scene (outside, non-finite and masked points among
+    them) from NEWTON_POSES: the kernel's sums at its final pose against
+    the plain sums there, its pose within trans_eps and two iterations of
+    the plain version's (see the module note). The readings are printed
+    (pytest -s)."""
+    m, src, mask, w = _inputs(dev)
+    N = ndt_newton
+    for pose in NEWTON_POSES:
+        args, kw = _newton_call(m, src, mask, w, pose, stencil)
+        k = N.ndt_newton(*args, **kw).cpu().numpy()
+        p = N.ndt_newton_plain(*args, **kw).cpu().numpy()
+        R, t, jang, hang = N.pose_coefficients(torch.as_tensor(k[N.POSE], device=dev))
+        at_k = ndt_fused.ndt_reduce_plain(
+            src, mask, w, m.index, m.packed, m.origin, R, t, jang, hang, dims=m.dims, resolution=m.resolution,
+            d1=kw["d1"], d2=kw["d2"], stencil=stencil, weight_derivatives=True,
+        ).cpu().numpy()
+        print(f"[far start {stencil}] {pose}: iterations kernel {int(k[N.ITERATIONS])}, plain "
+              f"{int(p[N.ITERATIONS])}; max |kernel - plain| pose {np.abs(k[N.POSE] - p[N.POSE]).max():.3e}")
+        sums = np.concatenate([k[N.SCORE:N.HESS.stop], [0.0]])
+        _assert_parity(sums, np.concatenate([at_k[:1], sums[1:7], at_k[7:]]))  # score, Hessian
+        _, g, h, _ = ndt_fused.unpack_results(at_k)
+        assert np.abs(np.linalg.solve(h.astype(np.float64), (sums[1:7] - g).astype(np.float64))).max() <= 1e-4
+        assert k[N.CONVERGED] == p[N.CONVERGED] == 1.0 and abs(k[N.ITERATIONS] - p[N.ITERATIONS]) <= 2
+        np.testing.assert_allclose(k[N.POSE], p[N.POSE], rtol=0, atol=CFG.trans_eps)
+        assert k[N.N_VALID] == p[N.N_VALID] == int(mask.sum()) and k[N.UNRESOLVED] == 0.0
+
+
+def test_newton_kernel_repeats_and_empty(dev):
+    """Fixed-order sums: a rerun is bit-identical. With no masked-in point
+    the loop stops at once on the degenerate step, keeping the guess."""
+    m, src, mask, w = _inputs(dev, n=9000)
+    args, kw = _newton_call(m, src, mask, w, NEWTON_POSES[1], "radius27")
+    a = ndt_newton.ndt_newton(*args, **kw)
+    b = ndt_newton.ndt_newton(*args, **kw)
+    assert torch.equal(a, b)
+    for n, keep in ((0, False), (256, False)):
+        args, kw = _newton_call(m, src[:n], mask[:n] & keep, w[:n], NEWTON_POSES[1], "direct7")
+        e = ndt_newton.ndt_newton(*args, **kw).cpu().numpy()
+        np.testing.assert_array_equal(e[ndt_newton.POSE], np.float32(NEWTON_POSES[1]))
+        assert e[ndt_newton.ITERATIONS] == 1 and e[ndt_newton.N_VALID] == 0 and e[ndt_newton.SCORE] == 0
+
+
+def test_device_pose_math_matches_torch(dev):
+    """The kernel's pose coefficients against the plain version's torch
+    ops on the card (both use the device's sinf / cosf): equal, or within
+    one float32 ulp at the scale of a sine."""
+    for pose in ([0.1, -0.2, 0.3, 0.2, -0.4, 0.7], [0.0, 0.0, 0.0, 5e-5, -0.3, 1e-5], [1.5, 2.0, -0.5, -9.9e-5, 1e-4, -3.0]):
+        p = torch.as_tensor(pose, dtype=torch.float32, device=dev)
+        k = ndt_newton.device_pose_coefficients(p).cpu().numpy()
+        R, t, jang, hang = (a.cpu() for a in ndt_newton.pose_coefficients(p))
+        want = np.frombuffer(bytes(ndt_fused._pack_params(np.zeros(3), R, t, jang, hang, (1, 1, 1), 1.0, 1.0, 1.0,
+                                                          1, True)), np.float32)[:93]
+        np.testing.assert_allclose(k, want, rtol=0, atol=np.spacing(np.float32(1.0)))
+
+
+def test_ndt_align_on_card_is_one_launch_and_one_sync(dev):
+    """ndt_align on CUDA tensors: one ndt_newton launch, one host sync (its
+    result copy), the host loop's pose to 1e-4."""
+    import warnings
+
+    m, src, mask, w = _inputs(dev)
+    cloud = PointCloud(points=src, mask=mask, weights=w)
+    guess = torch.as_tensor(tndt._pose_to_matrix(np.float32(NEWTON_POSES[0])))
+    tndt.ndt_align(m, cloud, guess, CFG)  # warm-up: the build and the first launch
+    torch.cuda.synchronize()
+    before = (ndt_newton.launches, ndt_fused.launches)
+    with warnings.catch_warnings(record=True) as syncs:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            r = tndt.ndt_align(m, cloud, guess, CFG)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    n_sync = sum("called a synchronizing CUDA operation" in str(x.message) for x in syncs)
+    assert n_sync == 1 and (ndt_newton.launches, ndt_fused.launches) == (before[0] + 1, before[1])
+    host = tndt.ndt_align_host_loop(m, cloud, guess, CFG)
+    assert r.iterations == host.iterations and r.converged == host.converged
+    np.testing.assert_allclose(r.pose.numpy(), host.pose.numpy(), atol=1e-4)
+    assert float(r.trans_probability) == pytest.approx(float(host.trans_probability), rel=1e-4)
+
+
+def test_newton_wrapper_rejects_bad_inputs(dev):
+    m, src, mask, w = _inputs(dev, n=256)
+    args, kw = _newton_call(m, src, mask, w, NEWTON_POSES[0], "direct7")
+    before = ndt_newton.launches
+    with pytest.raises(ValueError):  # the pose on the host
+        ndt_newton.ndt_newton(*args[:6], args[6].cpu(), **kw)
+    with pytest.raises(ValueError):  # dtype
+        ndt_newton.ndt_newton(src.double(), *args[1:], **kw)
+    with pytest.raises(ValueError):
+        ndt_newton.ndt_newton(*args, **dict(kw, stencil="radius9"))
+    with pytest.raises(ValueError):
+        ndt_newton.device_pose_coefficients(args[6].cpu())
+    assert ndt_newton.launches == before
 
 
 def _knn_inputs(dev, n=6000, seed=3):

@@ -41,19 +41,27 @@ def _t(x):
 
 class TestPlumbing:
     def test_import_leaves_jax_out(self):
+        """Importing every module of the port imports no jax and loads no
+        file of the JAX package, by name or by path."""
+        root = Path(__file__).resolve().parents[1]
+        port_modules = sorted(
+            ".".join(p.relative_to(root).with_suffix("").parts).removesuffix(".__init__")
+            for p in (root / "lidar_slam_tpu_torch").rglob("*.py")
+        )
+        assert "lidar_slam_tpu_torch.ops.cuda.ndt_newton" in port_modules
+        ref_dir = str(root / "lidar_slam_tpu") + "/"
         code = (
-            "import sys, lidar_slam_tpu_torch, lidar_slam_tpu_torch.pipeline, "
-            "lidar_slam_tpu_torch.pipeline.aloam, lidar_slam_tpu_torch.ops.hashgrid, "
-            "lidar_slam_tpu_torch.ops.linalg3, lidar_slam_tpu_torch.ops.cuda.knn_fused, "
-            "lidar_slam_tpu_torch.ops.cuda.ndt_gather, lidar_slam_tpu_torch.convert, lidar_slam_tpu_torch.io; "
+            "import importlib, sys\n"
+            f"for m in {port_modules!r}: importlib.import_module(m)\n"
             "print(sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
-            "or m == 'lidar_slam_tpu' or m.startswith('lidar_slam_tpu.')))"
+            "or m == 'lidar_slam_tpu' or m.startswith('lidar_slam_tpu.')))\n"
+            "print(sorted(m.__name__ for m in list(sys.modules.values()) "
+            f"if (getattr(m, '__file__', None) or '').startswith({ref_dir!r})))\n"
         )
         out = subprocess.run(
-            [sys.executable, "-c", code], capture_output=True, text=True, timeout=120, check=True,
-            cwd=Path(__file__).resolve().parents[1],
+            [sys.executable, "-c", code], capture_output=True, text=True, timeout=120, check=True, cwd=root,
         )
-        assert out.stdout.strip() == "[]", out.stdout
+        assert out.stdout.split("\n")[:2] == ["[]", "[]"], out.stdout
 
     def test_tf32_disabled(self):
         assert torch.backends.cuda.matmul.allow_tf32 is False
@@ -67,23 +75,34 @@ class TestPlumbing:
         else:
             with pytest.raises(RuntimeError):
                 port.device("cuda")
-            assert port.device().type == "cpu"
+            with pytest.raises(RuntimeError):
+                port.device()
 
     def test_synthetic_data_is_the_reference_generator(self):
-        from lidar_slam_tpu.io import SyntheticWorld as JWorld
-        from lidar_slam_tpu.io import simulate_scan as j_scan
+        """The port's own copy of the generator makes the reference's data."""
+        from lidar_slam_tpu import io as jio
 
-        from lidar_slam_tpu_torch.io import SyntheticWorld as TWorld
-        from lidar_slam_tpu_torch.io import simulate_scan as t_scan
+        from lidar_slam_tpu_torch import io as tio
 
-        jw = JWorld.corridor(length=40.0, seed=3)
-        tw = TWorld.corridor(length=40.0, seed=3)
+        assert tio.SyntheticWorld is not jio.SyntheticWorld
+        assert tio.SyntheticWorld.__module__ == "lidar_slam_tpu_torch.io.synthetic"
+        jw = jio.SyntheticWorld.corridor(length=40.0, seed=3)
+        tw = tio.SyntheticWorld.corridor(length=40.0, seed=3)
         np.testing.assert_array_equal(jw.points, tw.points)
         pose = np.eye(4, dtype=np.float32)
-        jp, jm, _ = j_scan(jw, pose, n_points=2048, seed=5)
-        tp, tm, _ = t_scan(tw, pose, n_points=2048, seed=5)
+        jp, jm, _ = jio.simulate_scan(jw, pose, n_points=2048, seed=5)
+        tp, tm, _ = tio.simulate_scan(tw, pose, n_points=2048, seed=5)
         np.testing.assert_array_equal(jp, tp)
         np.testing.assert_array_equal(jm, tm)
+        jt, tt = jio.make_trajectory(12, speed=0.8), tio.make_trajectory(12, speed=0.8)
+        np.testing.assert_array_equal(jt, tt)
+        np.testing.assert_array_equal(jio.make_hairpin_trajectory(12), tio.make_hairpin_trajectory(12))
+        js, jsm = jio.simulate_spinning_scan(jw, jt[3], t=0.3, n_scans=16, n_azimuth=128, seed=2)
+        ts, tsm = tio.simulate_spinning_scan(tw, tt[3], t=0.3, n_scans=16, n_azimuth=128, seed=2)
+        np.testing.assert_array_equal(js, ts)
+        np.testing.assert_array_equal(jsm, tsm)
+        noisy = tt + np.float32(0.01)
+        assert tio.ate_rmse(noisy, tt) == jio.ate_rmse(noisy, jt)
 
 
 class TestSE3:
