@@ -9,7 +9,8 @@ points, frames of <= 32 768 points, 1 m NDT voxels on a 256 x 256 x 64
 grid, 65 536 compact voxels, a 20-keyframe local map); the A-LOAM front end
 at the CLI's KITTI HDL-64 configuration (cli.py: 131 072-point sweeps, a
 65 536-point corner map and a 131 072-point surf map on a 192 x 192 x 32
-grid) on bench.py's aloam_leg world and trajectory:
+grid) on bench.py's aloam_leg world and trajectory, at bench.py's density
+30 (~5.5k returns a sweep) and at DENSE, a real HDL-64 sweep (~106k):
 
   1. device and power limit (exits non-zero without CUDA: never runs on
      the CPU);
@@ -32,19 +33,26 @@ grid) on bench.py's aloam_leg world and trajectory:
      frames and front_end_drive over 15 frames (bench.py front_end_leg):
      ndt_newton launched once per alignment there, K1 not at all;
   7. K2 against its plain version on the A-LOAM operating point's own
-     inputs (odometry: surf features, k = 8, ring extras; mapping: surf
-     map, k = 5), exact, with both device times;
+     inputs at both densities (knn_cases at sweep 2: odometry surf and
+     corner, k = 8, ring extras; mapping surf and corner, k = 5; and at
+     DENSE mapping's two searches against the full maps the phase-10 drive
+     left), every key equal with the queries sorted and in a random order,
+     no host sync and one kernel and no copy a call, with the wrapper's,
+     the kernel's and the plain version's device times;
   8. K3 against its plain version on phase 3's NDT map and one frame's
      voxel ids (direct7, radius27), exact, with both device times;
   9. the scan-match drive with gather="onehot" (K3 on the path): the
      0.10 m guard, and the same poses as the gather="two_level" drive;
- 10. the A-LOAM drive (AloamPipeline.update x 2, then update_batch x 10,
-     twice from the same primed state): ms/sweep, pose error (guard
-     0.3 m mean), both runs equal, one host sync per batch;
+ 10. the A-LOAM drive at each density (AloamPipeline.update x 2, then
+     update_batch x 10, twice from the same primed state): ms/sweep, pose
+     error (guard 0.3 m mean), both runs equal, one host sync per batch;
+     a third run under torch.profiler for the device's busy time a sweep
+     and its idle share; K2 launched 10 times a sweep;
  11. the kernels line: every kernel with its launches on its path, its
      device time beside its plain version's and its bound (the larger of
      the bytes it must move over 3.35 TB/s and its fp32 FLOPs over 67
-     TFLOP/s, counted from this run's inputs).
+     TFLOP/s, counted from this run's inputs); K2's headline is DENSE's
+     odometry surf search, its other searches under "cases".
 
 Any failed check ends the run with a non-zero exit code. The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -66,6 +74,9 @@ RAW_CAP = 131072
 FRAME_CAP = 32768
 N_FRAMES = 20
 ALOAM_SWEEPS = 12
+DENSE = 10000.0  # the aloam_leg world at a real HDL-64 sweep density (~106k returns in 131 072 rows)
+ALOAM_DENSITIES = (30.0, DENSE)  # bench.py's density, kept for continuity, and DENSE
+K2_PER_SWEEP = 10  # odometry: 3 rounds x (corner, surf); mapping: 2 rounds x (corner, surf)
 # bench.py:187-189
 TOL = {"score": dict(rtol=2e-4, atol=0.0), "grad": dict(rtol=2e-3, atol=1e-3), "hess": dict(rtol=2e-3, atol=1e-2)}
 POSE_TOL = 1e-4  # ndt_newton against the host loop and its plain version, m and rad (check_poses)
@@ -217,21 +228,25 @@ def device_ms(fn, reps=30):
     return float(np.median(times))
 
 
-def kernel_only_ms(fn, name, reps=10):
-    """Mean device time in ms of the kernels whose name contains `name`,
-    per call of fn(), from torch.profiler (the wrapper's other device work
-    left out)."""
+def device_events(fn, reps=10, tries=3):
+    """{kernel or copy name: (count, device us)} of reps calls of fn(), from
+    torch.profiler (after one warm call). A profiler window now and then
+    comes back empty on the card: up to `tries` windows are taken."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages() if name in e.key)
-    return total / reps / 1e3
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = {e.key: (e.count, e.self_device_time_total) for e in prof.key_averages()
+                  if e.self_device_time_total > 0}
+        if events:
+            return events
+    return {}
 
 
 def kernel_parity(workload, cfg, stencil):
@@ -623,13 +638,13 @@ def aloam_configs():
     return fe, AloamOdometryConfig(), AloamMappingConfig()
 
 
-def aloam_workload():
-    """bench.py:437-473 (aloam_leg): corridor 60 x 18 m, density 30, seed 2;
-    12 sweeps at 0.8 m/frame, each a 64-ring x 2048-azimuth sweep (131 072
-    rows, the padded capacity)."""
+def aloam_workload(density):
+    """bench.py:437-473 (aloam_leg): corridor 60 x 18 m, seed 2, at
+    `density` (bench.py's 30, or DENSE); 12 sweeps at 0.8 m/frame, each a
+    64-ring x 2048-azimuth sweep (131 072 rows, the padded capacity)."""
     from lidar_slam_tpu_torch.io import SyntheticWorld, make_trajectory, simulate_spinning_scan
 
-    world = SyntheticWorld.corridor(length=60.0, width=18.0, density=30.0, seed=2)
+    world = SyntheticWorld.corridor(length=60.0, width=18.0, density=density, seed=2)
     traj = make_trajectory(ALOAM_SWEEPS, speed=0.8)
     frames = [
         simulate_spinning_scan(world, traj[i], t=i * 0.1, n_scans=64, n_azimuth=2048, seed=i)
@@ -648,11 +663,13 @@ def primed_pipeline(dev, traj, frames):
     return pipe
 
 
-def knn_work(grid, q, qm, k, n_extra):
+def knn_work(grid, q, qm, k, n_extra, n_found):
     """Bytes and fp32 FLOPs of one k-NN search on these inputs: the queries
-    read once, the cell ranges and table rows (xyz, valid, index, extras)
-    of the stencil cells the valid queries touch read once, the outputs
-    (idx, dist, ok, pts, extras) written once; a distance per candidate."""
+    read once (xyz and mask), the cell ranges (start, count) of the stencil
+    cells the valid queries touch, 12 B of xyz per candidate row of those
+    cells, the original index and extras of the `n_found` neighbours only,
+    the outputs (idx, dist, ok, pts, extras) written once; a distance per
+    candidate."""
     import torch
 
     from lidar_slam_tpu_torch.ops.hashgrid import _flat_cell_id, clip_to_grid, in_bounds, stencil_offsets
@@ -663,75 +680,103 @@ def knn_work(grid, q, qm, k, n_extra):
     cells = _flat_cell_id(cand, grid.dims)[in_bounds(cand, grid.dims)].long()
     uniq = torch.unique(cells)
     nq = q.shape[0]
-    n_bytes = (nq * 13 + uniq.numel() * 8 + int(grid.cell_counts[uniq].sum()) * (17 + 4 * n_extra)
+    n_bytes = (nq * 13 + uniq.numel() * 8 + int(grid.cell_counts[uniq].sum()) * 12 + n_found * (4 + 4 * n_extra)
                + nq * k * (21 + 4 * n_extra))
     return n_bytes, int(grid.cell_counts[cells].sum()) * FLOPS_KNN_CANDIDATE
 
 
-def knn_parity(dev, traj, frames):
-    """Phase 7: K2 vs knn_exact_plain on the operating point's inputs, at
-    the state after two sweeps: the odometry's searches (sweep 2's flat and
-    sharp features at the warm-start pose, against sweep 1's less-flat and
-    less-sharp clouds, ring extras) and the mapping's (sweep 2's surf and
-    corner stacks at the predicted map pose, against the maps). Queries are
-    sorted by cell, as the path sorts them. Returns {case: (K2 ms, plain
-    ms, max |K2 - plain|, bound ms, what sets it)}."""
-    import torch
-
+def knn_cases(st, pts, msk, after_drive=False):
+    """K2's searches in one aloam_step from state `st` on the sweep (pts,
+    msk): odometry's (the sweep's flat and sharp features at the warm-start
+    pose against the previous sweep's less-flat and less-sharp clouds, ring
+    extras, k = 8, 5 m cells) and mapping's (its surf and corner stacks at
+    the predicted map pose against the maps, k = 5, 1 m cells). With
+    `after_drive`, mapping's only, at the sweep's own refined pose: `st` is
+    the state after that sweep. Queries sorted by cell, as the path sorts
+    them. Returns {case: (grid, queries, mask, k, radius, extras)}."""
     from lidar_slam_tpu_torch.geom import transform_points
-    from lidar_slam_tpu_torch.ops.cuda import knn_fused
     from lidar_slam_tpu_torch.ops.hashgrid import build_bucket_grid
     from lidar_slam_tpu_torch.pipeline.aloam import downsample_stacks, extract_features
     from lidar_slam_tpu_torch.pipeline.aloam.odometry import sort_by_cell
 
     fe, odo, mapping = aloam_configs()
-    pipe = primed_pipeline(dev, traj, frames)
-    st = pipe.state
-    pts, msk = pipe.preload(*frames[2])
     f = extract_features(pts, msk, fe)
     stack_corner, stack_surf = downsample_stacks(f.less_sharp, f.less_flat, mapping)
-    guess = st.T_map_odom @ st.T_world @ st.T_rel
+    guess = st.T_map_odom @ st.T_world if after_drive else st.T_map_odom @ st.T_world @ st.T_rel
     r_odo = float(np.sqrt(odo.dist_sq_threshold))
 
-    def odo_case(target, ring, queries):
-        return build_bucket_grid(target, odo.grid_cell, odo.grid_dims), queries, st.T_rel, odo.knn_k, r_odo, ring
-
-    def map_case(target, queries):
-        return (build_bucket_grid(target, mapping.grid_cell, mapping.grid_dims), queries, guess, mapping.knn_k,
-                mapping.nn_radius, None)
-
-    cases = {
-        "odometry": odo_case(st.prev_less_flat, st.prev_less_flat_ring, f.flat),
-        "mapping": map_case(st.surf_map, stack_surf),
-        "odometry corner": odo_case(st.prev_less_sharp, st.prev_less_sharp_ring, f.sharp),
-        "mapping corner": map_case(st.corner_map, stack_corner),
-    }
-    out = {}
-    for name, (grid, cloud, T, k, radius, extras) in cases.items():
+    def case(target, cell, dims, cloud, T, k, radius, extras):
+        grid = build_bucket_grid(target, cell, dims)
         q = transform_points(T, cloud.points)
         order = sort_by_cell(grid, q, cloud.mask)
-        q, qm = q[order].contiguous(), cloud.mask[order].contiguous()
+        return grid, q[order].contiguous(), cloud.mask[order].contiguous(), k, radius, extras
+
+    cases = {}
+    if not after_drive:
+        cases["odometry"] = case(st.prev_less_flat, odo.grid_cell, odo.grid_dims, f.flat, st.T_rel, odo.knn_k,
+                                 r_odo, st.prev_less_flat_ring)
+    cases["mapping"] = case(st.surf_map, mapping.grid_cell, mapping.grid_dims, stack_surf, guess, mapping.knn_k,
+                            mapping.nn_radius, None)
+    if not after_drive:
+        cases["odometry corner"] = case(st.prev_less_sharp, odo.grid_cell, odo.grid_dims, f.sharp, st.T_rel,
+                                        odo.knn_k, r_odo, st.prev_less_sharp_ring)
+    cases["mapping corner"] = case(st.corner_map, mapping.grid_cell, mapping.grid_dims, stack_corner, guess,
+                                   mapping.knn_k, mapping.nn_radius, None)
+    return cases
+
+
+def knn_parity(label, cases):
+    """Phase 7 for one operating point: K2 vs knn_exact_plain on `cases`
+    (knn_cases), equal on every key with the queries sorted and in a random
+    order; one call makes no host sync and runs one kernel and no copy
+    (torch.profiler). Returns {case: fields of the kernels line}."""
+    import torch
+
+    from lidar_slam_tpu_torch.ops.cuda import knn_fused
+
+    out = {}
+    for name, (grid, q, qm, k, radius, extras) in cases.items():
+        lanes = knn_fused.default_lanes(grid.cell_size)
+
+        def call(q=q, qm=qm):
+            return knn_fused.window_knn(grid, q, qm, k, radius, extras)
+
         plain = knn_fused.knn_exact_plain(grid, q, qm, k, radius, extras)
-        plain_ms = device_ms(lambda: knn_fused.knn_exact_plain(grid, q, qm, k, radius, extras), reps=5)
-        r = knn_fused.window_knn(grid, q, qm, k, radius, extras)
+        plain_ms = device_ms(lambda: knn_fused.knn_exact_plain(grid, q, qm, k, radius, extras), reps=3)
+        with counting_syncs() as syncs:
+            r = call()
+        check(syncs[0] == 0, f"K2 {label} {name}: {syncs[0]} host syncs in one call")
+        perm = torch.randperm(q.shape[0], generator=torch.Generator().manual_seed(0)).to(q.device)
+        r_perm = call(q[perm].contiguous(), qm[perm].contiguous())
         torch.cuda.synchronize()
+        check(set(r) == set(plain), f"K2 {label} {name}: keys {sorted(r)} vs {sorted(plain)}")
         err = 0.0
         for key in plain:
-            check(torch.equal(r[key], plain[key]), f"K2 {name}: {key} differs from the plain version")
+            check(torch.equal(r[key], plain[key]), f"K2 {label} {name}: {key} differs from the plain version")
+            if key != "unresolved":
+                check(torch.equal(r_perm[key], plain[key][perm]), f"K2 {label} {name}: {key} differs in random order")
             if key != "ok" and r[key].numel():
                 a, b = r[key].double(), plain[key].double()
                 both = torch.isfinite(a) & torch.isfinite(b)
                 err = max(err, float(torch.where(both, (a - b).abs(), 0.0).max()))
-        ms = device_ms(lambda: knn_fused.window_knn(grid, q, qm, k, radius, extras))
-        alone = kernel_only_ms(lambda: knn_fused.window_knn(grid, q, qm, k, radius, extras), "knn_kernel")
-        n_bytes, flops = knn_work(grid, q, qm, k, 0 if extras is None else 1)
+        ms = device_ms(call)
+        events = device_events(call)
+        check(len(events) == 1 and "knn_kernel" in next(iter(events)),
+              f"K2 {label} {name}: device work of 10 calls {events}, expected one kernel and nothing else")
+        n_calls, us = next(iter(events.values()))
+        alone = us / n_calls / 1e3
+        n_found = int(plain["ok"].sum())
+        n_bytes, flops = knn_work(grid, q, qm, k, 0 if extras is None else 1, n_found)
         bound_ms, bound_by = bound(n_bytes, flops)
-        log(f"[parity K2 {name}] {int(qm.sum())} queries x {int(grid.valid.sum())} table rows "
-            f"(largest cell {int(grid.cell_counts.max())}), k={k}, r={radius}: {int(plain['ok'].sum())} "
-            f"neighbours, equal to the plain version; K2 {ms:.4f} ms (kernel alone {alone:.4f}, the rest "
-            f"the feature table and unpacking), plain {plain_ms:.4f} ms (device, median); bound "
-            f"{bound_ms:.5f} ms ({n_bytes} B, {flops} FLOP: {bound_by})")
-        out[name] = (ms, plain_ms, err, bound_ms, bound_by)
+        log(f"[parity K2 {label} {name}] {int(qm.sum())} queries x {int(grid.valid.sum())} table rows "
+            f"(largest cell {int(grid.cell_counts.max())}), k={k}, r={radius}, "
+            f"{lanes} lanes: {n_found} neighbours, equal to the plain version "
+            f"sorted and in random order, no host sync; K2 {ms:.4f} ms (kernel alone {alone:.4f}, one launch, "
+            f"no copy), plain {plain_ms:.4f} ms (device, median); bound {bound_ms:.5f} ms ({n_bytes} B, "
+            f"{flops} FLOP: {bound_by})")
+        out[name] = {"density": label, "case": name, "ms": ms, "alone_ms": alone, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err, "queries": int(qm.sum()),
+                     "rows": int(grid.valid.sum()), "lanes": lanes}
     return out
 
 
@@ -764,8 +809,8 @@ def gather_parity(workload, cfg):
         err = float((k - p).abs().max())
         hits = int((k[..., 10] > 0.5).sum())
         ms = device_ms(lambda: ndt_gather.gather_stats_onehot(ndt_map.keys, ndt_map.packed, vids))
-        alone = kernel_only_ms(lambda: ndt_gather.gather_stats_onehot(ndt_map.keys, ndt_map.packed, vids),
-                               "gather_kernel")
+        events = device_events(lambda: ndt_gather.gather_stats_onehot(ndt_map.keys, ndt_map.packed, vids))
+        alone = sum(us / n_calls for key, (n_calls, us) in events.items() if "gather_kernel" in key) / 1e3
         plain_ms = device_ms(lambda: ndt_gather.gather_stats_plain(ndt_map.keys, ndt_map.packed, vids), reps=3)
         # keys read once (the sort needs all), the hit rows once, ids in, rows out
         n_bytes = (ndt_map.keys.numel() * 4 + int(torch.isin(ndt_map.keys, vids[vids >= 0]).sum()) * 64
@@ -788,13 +833,17 @@ def onehot_drive(workload, cfg):
     log("[scan-match onehot] poses equal to the gather=two_level drive's")
 
 
-def aloam_drive(dev, traj, frames):
-    """Phase 10 (bench.py:437-473): two sweeps prime the state through
-    update(), then sweeps 2-11 go through update_batch twice from that
-    state: a warm-up, then the timed run. Checks the 0.3 m mean-error guard,
-    that both runs give the same poses, and that the timed batch
-    synchronises with the host once (its final pose copy)."""
+def aloam_drive(dev, traj, frames, label):
+    """Phase 10 (bench.py:437-473) at one density: two sweeps prime the
+    state through update(), then sweeps 2-11 go through update_batch twice
+    from that state: a warm-up, then the timed run. Checks the 0.3 m
+    mean-error guard, that both runs give the same poses, and that the timed
+    batch synchronises with the host once (its final pose copy). Returns
+    (ms/sweep, the pipeline after the timed run). A third run, under
+    torch.profiler, gives the device's busy time a sweep and its idle
+    share of the timed run."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
     pipe = primed_pipeline(dev, traj, frames)
     primed = pipe.state
@@ -809,13 +858,25 @@ def aloam_drive(dev, traj, frames):
     n_sync = syncs[0]
     n = len(batch)
     errs = np.linalg.norm(poses[:, :3, 3] - traj[2:, :3, 3], axis=1)
-    log(f"[aloam] update_batch of {n} sweeps: {dt / n * 1e3:.2f} ms/sweep ({n / dt:.1f} fps), "
+    log(f"[aloam {label}] update_batch of {n} sweeps: {dt / n * 1e3:.2f} ms/sweep ({n / dt:.1f} fps), "
         f"{n_sync} host sync(s); pose error mean {errs.mean():.4f} max {errs.max():.4f} m; "
         f"{int(sum(m.sum() for _, m in frames))} returns in {len(frames)} sweeps of {len(frames[0][1])} rows")
-    check(errs.mean() < 0.3, f"A-LOAM error guard ({errs.mean():.4f} m)")
-    check(np.array_equal(warm, poses), "A-LOAM: two chained runs from the same primed state differ")
-    check(n_sync == 1, f"A-LOAM: update_batch synchronised {n_sync} times, expected once")
-    return dt / n * 1e3
+    check(errs.mean() < 0.3, f"A-LOAM {label}: error guard ({errs.mean():.4f} m)")
+    check(np.array_equal(warm, poses), f"A-LOAM {label}: two chained runs from the same primed state differ")
+    check(n_sync == 1, f"A-LOAM {label}: update_batch synchronised {n_sync} times, expected once")
+    # a third run under torch.profiler: the device's busy time a sweep
+    for _ in range(2):  # a profiler window now and then comes back empty on the card
+        pipe.state = primed
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            pipe.update_batch(batch)
+        events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+        if events:
+            break
+    busy = sum(e.self_device_time_total for e in events) / n / 1e3
+    k2 = sum(e.self_device_time_total for e in events if "knn_kernel" in e.key) / n / 1e3
+    log(f"[aloam {label}] device busy {busy:.3f} ms/sweep (torch.profiler, a third run of the batch): idle share "
+        f"{1 - busy / (dt / n * 1e3):.3f} of the timed run; K2 {k2:.4f} ms/sweep of it")
+    return dt / n * 1e3, pipe
 
 
 def reset_launches():
@@ -865,10 +926,16 @@ def main() -> int:
     launches_k1 = sum(drive_parity(workload, cfg, s) for s in stencils)
     log(f"[launches] K1: {launches_k1} in the host-loop drives")
     check(launches_k1 > 0, "K1 was not launched by the host-loop drive")
-    t0 = time.perf_counter()
-    traj, frames = aloam_workload()
-    log(f"[workload] A-LOAM: {len(frames)} sweeps simulated in {time.perf_counter() - t0:.1f} s")
-    knn = knn_parity(dev, traj, frames)
+    aloam = {}
+    for density in ALOAM_DENSITIES:
+        t0 = time.perf_counter()
+        aloam[density] = aloam_workload(density)
+        log(f"[workload] A-LOAM, density {density:g}: {ALOAM_SWEEPS} sweeps simulated in "
+            f"{time.perf_counter() - t0:.1f} s")
+    knn = []
+    for density, (traj, frames) in aloam.items():
+        pipe = primed_pipeline(dev, traj, frames)
+        knn += knn_parity(f"{density:g}", knn_cases(pipe.state, *pipe.preload(*frames[2]))).values()
     gather = gather_parity(workload, cfg)
 
     # the main paths: each path's counts are set to 0 just before it and
@@ -893,15 +960,24 @@ def main() -> int:
     log(f"[launches] K3: {launches_k3} in the onehot scan-match drive")
     check(launches_k3 > 0, "K3 was not launched by the onehot drive")
 
-    reset_launches()
-    aloam_drive(dev, traj, frames)
-    launches_k2 = knn_fused.launches
-    log(f"[launches] K2: {launches_k2} in the A-LOAM drive ({2 + 2 * (len(frames) - 2)} sweeps); "
-        f"peak device memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
-    check(launches_k2 > 0, "K2 was not launched by the A-LOAM drive")
+    launches_k2 = 0
+    for density, (traj, frames) in aloam.items():
+        reset_launches()
+        _, pipe = aloam_drive(dev, traj, frames, f"{density:g}")
+        n_sweeps = 2 + 3 * (len(frames) - 2)  # primed by 2, then a warm-up, a timed and a profiled batch
+        log(f"[launches] K2: {knn_fused.launches} in the density-{density:g} A-LOAM drive ({n_sweeps} sweeps); "
+            f"peak device memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+        check(knn_fused.launches == K2_PER_SWEEP * n_sweeps,
+              f"A-LOAM {density:g}: {knn_fused.launches} K2 launches in {n_sweeps} sweeps, expected "
+              f"{K2_PER_SWEEP} a sweep")
+        launches_k2 += knn_fused.launches
+    # mapping's searches against the full maps the dense drive left
+    knn += knn_parity(f"{DENSE:g} after the drive",
+                      knn_cases(pipe.state, *pipe.preload(*frames[-1]), after_drive=True)).values()
 
     d7, r27 = parity["direct7"], parity["radius27"]
     n7, n27 = newton["direct7"], newton["radius27"]
+    k2 = next(c for c in knn if c["density"] == f"{DENSE:g}" and c["case"] == "odometry")
     log(json.dumps({"kernels": [
         {
             "name": "ndt_newton",
@@ -949,15 +1025,14 @@ def main() -> int:
             "source": "lidar_slam_tpu_torch/csrc/knn_fused.cu",
             "replaces": "lidar_slam_tpu/ops/pallas/knn_fused.py:117",
             "launches": launches_k2,
-            "max_abs_err": max(v[2] for v in knn.values()),
-            "ms": knn["odometry"][0],
-            "plain_ms": knn["odometry"][1],
-            "bound_ms": knn["odometry"][3],
-            "bound_by": knn["odometry"][4],
+            "max_abs_err": max(c["max_abs_err"] for c in knn),
+            "ms": k2["ms"],
+            "plain_ms": k2["plain_ms"],
+            "bound_ms": k2["bound_ms"],
+            "bound_by": k2["bound_by"],
             "library_ms": None,
-            **{f"{key}_{case.replace(' ', '_')}": knn[case][i]
-               for case in ("mapping", "odometry corner", "mapping corner")
-               for i, key in ((0, "ms"), (1, "plain_ms"), (3, "bound_ms"))},
+            "alone_ms": k2["alone_ms"],
+            "cases": [{key: v for key, v in c.items() if key != "max_abs_err"} for c in knn],
         },
         {
             "name": "gather_stats_onehot",

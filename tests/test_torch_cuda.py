@@ -27,7 +27,9 @@ through the Newton step it makes, H^-1 (g - g_plain), within 1e-4.
 
 K2 and K3 are compared exactly: K2 computes each distance with the same
 float32 operations as its plain version (no FMA contraction) and breaks
-ties on the same row; K3 sums the same rows (one, or two in either order).
+ties on the same row, with every compiled number of lanes per query and
+for any query order; K3 sums the same rows (one, or two in
+either order).
 """
 
 import dataclasses
@@ -317,22 +319,72 @@ def _knn_inputs(dev, n=6000, seed=3):
     return PointCloud(points=t(pts), mask=t(mask)), t(q), t(qmask), t(ring)
 
 
-@pytest.mark.parametrize("k,cell,radius,extras", [(5, 1.0, 1.0, False), (8, 5.0, 5.0, True), (8, 2.0, 1.5, True)])
-def test_knn_kernel_matches_plain(dev, k, cell, radius, extras):
-    cloud, q, qm, ring = _knn_inputs(dev)
+def _knn_extras(kind, n, dev, seed=7):
+    """None, or '<dtype>_<E>' extras ([N] for int32_1d, else [N, E])."""
+    if kind is None:
+        return None
+    rng = np.random.default_rng(seed)
+    if kind == "int32_1d":
+        return torch.as_tensor(rng.integers(0, 64, n).astype(np.int32), device=dev)
+    dtype, e = kind.split("_")
+    if dtype == "int32":
+        return torch.as_tensor(rng.integers(-1000, 1000, (n, int(e))).astype(np.int32), device=dev)
+    return torch.as_tensor(rng.normal(size=(n, int(e))).astype(np.float32), device=dev)
+
+
+def _assert_knn_equal(r, p, perm=None):
+    """Every key of the kernel's dict equal to the plain version's (for the
+    queries in `perm`'s order when given)."""
+    assert set(r) == set(p)
+    for key in r:
+        want = p[key] if perm is None or key == "unresolved" else p[key][perm]
+        assert r[key].dtype == want.dtype and torch.equal(r[key], want), key
+
+
+@pytest.mark.parametrize("lanes", knn_fused.LANES)
+@pytest.mark.parametrize("k,cell,radius,extras", [
+    (5, 1.0, 1.0, None), (8, 5.0, 5.0, "int32_1d"), (8, 2.0, 1.5, "float32_3"), (5, 2.0, 2.0, "int32_0"),
+])
+def test_knn_kernel_matches_plain(dev, k, cell, radius, extras, lanes):
+    """Every compiled lane count against the plain version, every key
+    equal: queries unsorted, sorted by cell (as the path sorts them) and in
+    a random order; int32 and float32 extras, E = 0, 1, 3."""
+    from lidar_slam_tpu_torch.pipeline.aloam.odometry import sort_by_cell
+
+    cloud, q, qm, _ = _knn_inputs(dev)
     grid = build_bucket_grid(cloud, cell, (96, 96, 24))
-    ex = ring if extras else None
+    ex = _knn_extras(extras, cloud.points.shape[0], dev)
     before = knn_fused.launches
-    r = knn_fused.window_knn(grid, q, qm, k, radius, ex)
+    r = knn_fused.window_knn(grid, q, qm, k, radius, ex, lanes=lanes)
     assert knn_fused.launches == before + 1
     p = knn_fused.knn_exact_plain(grid, q, qm, k, radius, ex)
     assert knn_fused.launches == before + 1  # the plain path launches nothing
-    assert set(r) == set(p)
-    for key in r:
-        assert torch.equal(r[key], p[key]), key
+    _assert_knn_equal(r, p)
     ok = r["ok"].cpu().numpy()
     on_target = cloud.mask[:300].cpu().numpy() & qm[:300].cpu().numpy()  # each finds itself
     assert ok[:300][on_target, 0].all() and not ok[-2:].any() and ok.sum() > 1000
+    for order in (sort_by_cell(grid, q, qm), torch.randperm(len(q), generator=torch.Generator().manual_seed(1))):
+        order = order.to(dev)
+        r = knn_fused.window_knn(grid, q[order], qm[order], k, radius, ex, lanes=lanes)
+        _assert_knn_equal(r, p, order)
+
+
+@pytest.mark.parametrize("lanes", knn_fused.LANES)
+def test_knn_kernel_crowded_cell(dev, lanes):
+    """3 000 points in one 5 m cell and queries in it: every lane count
+    scans the whole crowded cell and drops no candidate."""
+    rng = np.random.default_rng(11)
+    pts = rng.uniform(0.2, 4.8, size=(3000, 3)).astype(np.float32)
+    pts = np.concatenate([pts, rng.uniform(-20, 20, size=(500, 3)).astype(np.float32)])
+    cloud = PointCloud(points=torch.as_tensor(pts, device=dev), mask=torch.ones(len(pts), dtype=torch.bool, device=dev))
+    grid = build_bucket_grid(cloud, 5.0, (16, 16, 8), origin=np.float32([-40.0, -40.0, -20.0]))
+    assert int(grid.cell_counts.max()) >= 3000
+    q = torch.as_tensor(np.sort(rng.uniform(0.2, 4.8, size=(512, 3)).astype(np.float32), axis=0), device=dev)
+    qm = torch.ones(len(q), dtype=torch.bool, device=dev)
+    ring = _knn_extras("int32_1d", len(pts), dev)
+    r = knn_fused.window_knn(grid, q, qm, 8, 5.0, ring, lanes=lanes)
+    _assert_knn_equal(r, knn_fused.knn_exact_plain(grid, q, qm, 8, 5.0, ring))
+    assert r["ok"].all()
 
 
 def test_knn_kernel_repeats_and_empty(dev):
@@ -342,7 +394,36 @@ def test_knn_kernel_repeats_and_empty(dev):
     b = knn_fused.window_knn(grid, q, qm, 8, 5.0, ring)
     assert all(torch.equal(a[key], b[key]) for key in a)
     e = knn_fused.window_knn(grid, q[:0], qm[:0], 8, 5.0, ring)
-    assert e["idx"].shape == (0, 8) and e["pts"].shape == (0, 8, 3)
+    p = knn_fused.knn_exact_plain(grid, q[:0], qm[:0], 8, 5.0, ring)
+    assert e["idx"].shape == (0, 8) and e["pts"].shape == (0, 8, 3) and e["extras"].shape == (0, 8, 1)
+    _assert_knn_equal(e, p)
+
+
+def test_knn_wrapper_is_one_kernel_and_no_sync(dev):
+    """A call makes no host sync (sync debug mode "error" raises on one),
+    and runs on the device one kernel and no copy or fill: 3 calls in a
+    torch.profiler window show 3 launches of it and nothing else. A window
+    now and then comes back empty on the card, so up to 3 are taken."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cloud, q, qm, ring = _knn_inputs(dev)
+    grid = build_bucket_grid(cloud, 5.0, (32, 32, 8))
+    knn_fused.window_knn(grid, q, qm, 8, 5.0, ring)  # warm-up: the build and the first launch
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        knn_fused.window_knn(grid, q, qm, 8, 5.0, ring)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                knn_fused.window_knn(grid, q, qm, 8, 5.0, ring)
+            torch.cuda.synchronize()
+        device_work = [(e.key, e.count) for e in prof.key_averages() if e.self_device_time_total > 0]
+        if device_work:
+            break
+    assert len(device_work) == 1 and "knn_kernel" in device_work[0][0] and device_work[0][1] == 3, device_work
 
 
 def test_knn_wrapper_rejects_bad_inputs(dev):
@@ -360,6 +441,12 @@ def test_knn_wrapper_rejects_bad_inputs(dev):
         knn_fused.window_knn(grid, q, qm, 5, 1.5)
     with pytest.raises(ValueError):  # k the kernel is not compiled for
         knn_fused.window_knn(grid, q, qm, 6, 1.0)
+    with pytest.raises(ValueError):  # lanes the kernel is not compiled for
+        knn_fused.window_knn(grid, q, qm, 5, 1.0, lanes=2)
+    with pytest.raises(ValueError):  # extras of another dtype
+        knn_fused.window_knn(grid, q, qm, 5, 1.0, ring.long())
+    with pytest.raises(ValueError):  # extras on the CPU
+        knn_fused.window_knn(grid, q, qm, 5, 1.0, ring.cpu())
     assert knn_fused.launches == before
 
 

@@ -110,23 +110,44 @@ class TestBucketGrid:
         assert _np(tr[2])[0].sum() == 4 and not _np(tr[2])[1].any()
 
 
+def _extras(kind, n, rng):
+    """Per-target-point extras in the caller's layout: None, or
+    '<dtype>_<E>' ([N] for int32_1d, else [N, E])."""
+    if kind is None:
+        return None
+    if kind == "int32_1d":
+        return rng.integers(0, 64, n).astype(np.int32)
+    dtype, e = kind.split("_")
+    if dtype == "int32":
+        return rng.integers(-1000, 1000, (n, int(e))).astype(np.int32)
+    return rng.normal(size=(n, int(e))).astype(np.float32)
+
+
 class TestExactKnn:
-    @pytest.mark.parametrize("k,radius,with_extras", [(5, 1.0, False), (8, 2.0, True)])
-    def test_plain_matches_window_knn(self, k, radius, with_extras):
+    @pytest.mark.parametrize("k,radius,extras_kind", [
+        (5, 1.0, None), (8, 2.0, "int32_1d"), (8, 2.0, "float32_3"), (5, 1.0, "int32_0"), (5, 2.0, "float32_1"),
+        (8, 1.0, "int32_3"),
+    ])
+    def test_plain_matches_window_knn(self, k, radius, extras_kind):
         """knn_exact_plain vs the JAX kernel (interpret mode). The table has
         <= 2048 rows, so the kernel's window is the whole table and its
         `unresolved` is 0: its result is exact gated k-NN too. Duplicate
-        points tie exactly; both break the tie on the lower sorted row."""
+        points tie exactly; both break the tie on the lower sorted row.
+        Queries come unsorted, some masked, some non-finite, one outside
+        the grid. Extras: int32 or float32, [N] or [N, E] with E = 0, 1, 3;
+        both return them as float32 [Q, k, E]."""
         pts, mask = _cloud(n=1500, seed=3, dup=60)
         rng = np.random.default_rng(4)
         queries = np.concatenate([
             pts[:60],  # on the duplicated points
             rng.uniform(-8, 8, size=(300, 3)).astype(np.float32),
             np.float32([[40.0, 0.0, 0.0], [-7.9, 7.9, -3.9]]),  # outside / at the grid edge
+            np.float32([[np.nan, 0.0, 0.0], [0.0, np.inf, 0.0]]),  # non-finite, masked in
         ])
         qmask = rng.random(len(queries)) < 0.85
         qmask[:60] = True
-        extras = rng.integers(0, 64, len(pts)).astype(np.int32) if with_extras else None
+        qmask[-2:] = True
+        extras = _extras(extras_kind, len(pts), rng)
         cell = max(radius, 1.0)
         j, t = _grids(pts, mask, cell, (16, 16, 8), ORIGIN)
 
@@ -141,24 +162,65 @@ class TestExactKnn:
         )
         assert set(tr) == set(jr)
         ok = np.asarray(jr["ok"])
-        assert ok[:60, :2].all() and ok.sum() > 200 and not ok[~qmask].any()
-        for key in ("ok", "idx", "pts") + (("extras",) if with_extras else ()):
+        assert ok[:60, :2].all() and ok.sum() > 200 and not ok[~qmask].any() and not ok[-2:].any()
+        for key in ("ok", "idx", "pts") + (("extras",) if extras is not None else ()):
             np.testing.assert_array_equal(_np(tr[key]), np.asarray(jr[key]), err_msg=key)
+        if extras is not None:
+            e = 1 if extras.ndim == 1 else extras.shape[1]
+            assert tr["extras"].dtype == torch.float32 and tuple(tr["extras"].shape) == (len(queries), k, e)
         np.testing.assert_allclose(_np(tr["dist"]), np.asarray(jr["dist"]), rtol=1e-6)
         assert float(tr["unresolved"]) == 0.0
 
-    def test_wrapper_takes_plain_on_cpu(self):
+    @pytest.mark.parametrize("extras_kind", [None, "int32_1d", "float32_3"])
+    def test_wrapper_takes_plain_on_cpu(self, extras_kind):
+        """On CPU tensors window_knn is the plain version, launches nothing,
+        and returns the dict's layout: idx int32 [Q, k], dist float32, ok
+        bool, pts float32 [Q, k, 3], extras float32 [Q, k, E], unresolved a
+        float32 scalar 0."""
         pts, mask = _cloud(n=400, seed=5)
         _, t = _grids(pts, mask, 1.0, (16, 16, 8), ORIGIN)
         q, qm = torch.as_tensor(pts[:50]), torch.ones(50, dtype=torch.bool)
+        ex = _extras(extras_kind, len(pts), np.random.default_rng(6))
+        ex = None if ex is None else torch.as_tensor(ex)
         before = knn_fused.launches
-        a = knn_fused.window_knn(t, q, qm, 5, 1.0)
-        b = knn_fused.knn_exact_plain(t, q, qm, 5, 1.0)
+        a = knn_fused.window_knn(t, q, qm, 5, 1.0, ex)
+        b = knn_fused.knn_exact_plain(t, q, qm, 5, 1.0, ex)
         assert knn_fused.launches == before
+        assert set(a) == {"idx", "dist", "ok", "pts", "unresolved"} | ({"extras"} if ex is not None else set())
         for key in a:
             assert torch.equal(a[key], b[key]), key
+        layout = {"idx": (torch.int32, (50, 5)), "dist": (torch.float32, (50, 5)), "ok": (torch.bool, (50, 5)),
+                  "pts": (torch.float32, (50, 5, 3)), "unresolved": (torch.float32, ())}
+        if ex is not None:
+            layout["extras"] = (torch.float32, (50, 5, 1 if ex.ndim == 1 else ex.shape[1]))
+        assert {key: (v.dtype, tuple(v.shape)) for key, v in a.items()} == layout
+        assert float(a["unresolved"]) == 0.0 and a["ok"][torch.as_tensor(mask[:50]), 0].all()  # each finds itself
         with pytest.raises(ValueError, match="cell_size"):
             knn_fused.window_knn(t, q, qm, 5, 1.5)
+
+    def test_rejects_bad_extras(self):
+        pts, mask = _cloud(n=400, seed=5)
+        _, t = _grids(pts, mask, 1.0, (16, 16, 8), ORIGIN)
+        q, qm = torch.as_tensor(pts[:50]), torch.ones(50, dtype=torch.bool)
+        with pytest.raises(ValueError, match="dtype"):
+            knn_fused.window_knn(t, q, qm, 5, 1.0, torch.zeros(400, dtype=torch.int64))
+        with pytest.raises(ValueError, match="shape"):
+            knn_fused.window_knn(t, q, qm, 5, 1.0, torch.zeros(399, dtype=torch.int32))
+
+    def test_plain_is_order_free(self):
+        """The result of a query does not depend on where it stands among
+        the others (the kernel's random-order check, on the CPU)."""
+        pts, mask = _cloud(n=800, seed=7, dup=30)
+        _, t = _grids(pts, mask, 2.0, (16, 16, 8), ORIGIN)
+        rng = np.random.default_rng(8)
+        q = torch.as_tensor(np.concatenate([pts[:30], rng.uniform(-8, 8, (200, 3)).astype(np.float32)]))
+        qm = torch.as_tensor(rng.random(len(q)) < 0.9)
+        ring = torch.as_tensor(rng.integers(0, 64, len(pts)).astype(np.int32))
+        perm = torch.as_tensor(rng.permutation(len(q)))
+        a = knn_fused.knn_exact_plain(t, q, qm, 8, 2.0, ring)
+        b = knn_fused.knn_exact_plain(t, q[perm], qm[perm], 8, 2.0, ring)
+        for key in ("idx", "dist", "ok", "pts", "extras"):
+            assert torch.equal(a[key][perm], b[key]), key
 
 
 def _onehot_case(dup_key: bool):
