@@ -40,9 +40,14 @@ grid) on bench.py's aloam_leg world and trajectory, at bench.py's density
      no host sync and one kernel and no copy a call, with the wrapper's,
      the kernel's and the plain version's device times;
   8. K3 against its plain version on phase 3's NDT map and one frame's
-     voxel ids (direct7, radius27), exact, with both device times;
+     voxel ids (direct7, radius27), exact, through both entries: the
+     presorted one on the map's keys (no host sync; one kernel and nothing
+     else, torch.profiler) and the general one, which sorts the keys; the
+     device times of both, of the kernel alone and of the plain version;
   9. the scan-match drive with gather="onehot" (K3 on the path): the
-     0.10 m guard, and the same poses as the gather="two_level" drive;
+     0.10 m guard, and the same poses as the gather="two_level" drive; a
+     third run under torch.profiler gives K3's share of the device time a
+     frame and shows that no sort kernel runs;
  10. the A-LOAM drive at each density (AloamPipeline.update x 2, then
      update_batch x 10, twice from the same primed state): ms/sweep, pose
      error (guard 0.3 m mean), both runs equal, one host sync per batch;
@@ -503,9 +508,9 @@ def drive_parity(workload, cfg, stencil):
 
 
 def scan_match_drive(workload, cfg, stencil):
-    """Phase 4 for one stencil (bench.py:98-161): 20 chained frames,
+    """Phase 6 for one stencil (bench.py:98-161): 20 chained frames,
     motion-model prediction, pose-error guard <= 0.10 m mean. Returns the
-    poses."""
+    poses and the timed run's ms/frame."""
     import torch
 
     from lidar_slam_tpu_torch.models.registration import build_ndt_map, ndt_align
@@ -542,7 +547,7 @@ def scan_match_drive(workload, cfg, stencil):
     check(errs.mean() <= 0.10, f"scan-match {name}: pose error guard ({errs.mean():.4f} m)")
     # every sum on the path is taken in a fixed order: a rerun is bit-identical
     check(np.array_equal(warm, poses), f"scan-match {name}: two runs of the drive differ")
-    return poses
+    return poses, dt / N_FRAMES * 1e3
 
 
 def front_end(dev):
@@ -780,14 +785,14 @@ def knn_parity(label, cases):
     return out
 
 
-def gather_parity(workload, cfg):
-    """Phase 8: K3 vs its plain version on phase 3's NDT map and the voxel
-    ids of one preprocessed frame at the first guess. Returns {stencil: (K3
-    ms, plain ms, max |K3 - plain|, bound ms, what sets it)}."""
+def gather_cases(workload, cfg):
+    """Phase 3's NDT map and the voxel ids of one preprocessed frame at the
+    first guess, direct7 and radius27 (-2 off the grid): (map, {stencil:
+    [N, S] int32 ids})."""
     import torch
 
     from lidar_slam_tpu_torch.models.registration import build_ndt_map
-    from lidar_slam_tpu_torch.ops.cuda import ndt_fused, ndt_gather
+    from lidar_slam_tpu_torch.ops.cuda import ndt_fused
     from lidar_slam_tpu_torch.pipeline.front_end import _preprocess
 
     map_cloud, all_pts, all_msk, _, guess0 = workload
@@ -797,40 +802,118 @@ def gather_parity(workload, cfg):
     xp = frame.points @ torch.as_tensor(guess0[:3, :3], device=dev).T + torch.as_tensor(guess0[:3, 3], device=dev)
     cell = torch.floor((xp - ndt_map.origin.to(dev)) / ndt_map.resolution).to(torch.int32)
     dims_t = torch.as_tensor(ndt_map.dims, dtype=torch.int32, device=dev)
-    out = {}
+    cases = {}
     for stencil in ("direct7", "radius27"):
         cand = cell[:, None, :] + torch.as_tensor(ndt_fused.STENCIL_OFFSETS[stencil], device=dev)[None]
         inb = torch.all((cand >= 0) & (cand < dims_t), dim=-1)
         vid = (cand[..., 0] * ndt_map.dims[1] + cand[..., 1]) * ndt_map.dims[2] + cand[..., 2]
-        vids = torch.where(inb, vid, -2).contiguous()
-        k = ndt_gather.gather_stats_onehot(ndt_map.keys, ndt_map.packed, vids)
-        p = ndt_gather.gather_stats_plain(ndt_map.keys, ndt_map.packed, vids)
-        check(torch.equal(k, p), f"K3 {stencil}: rows differ from the plain version")
+        cases[stencil] = torch.where(inb, vid, -2).contiguous()
+    return ndt_map, cases
+
+
+def is_k3_kernel(name):
+    """Whether a profiler event is K3's kernel: ndt_gather_* here, or the
+    earlier form's gather_kernel (so chip_gather.py reads a parent too)."""
+    return "ndt_gather" in name or "::gather_kernel(" in name
+
+
+def gather_work(keys, vids):
+    """Bytes K3 must move on these inputs: the keys read once, the rows of
+    the keys hit once, the ids in and the 64 B rows out."""
+    import torch
+
+    return keys.numel() * 4 + int(torch.isin(keys, vids[vids >= 0]).sum()) * 64 + vids.numel() * (4 + 64)
+
+
+def gather_parity(workload, cfg):
+    """Phase 8: K3 against its plain version on phase 3's NDT map and one
+    frame's voxel ids (gather_cases), both entries: the presorted one on the
+    map's keys (one kernel, no sort, no host sync) and the general one,
+    which sorts the keys first. Exact. Returns {stencil: fields of the
+    kernels line}: both entries' device times (CUDA events), the kernel's
+    alone (torch.profiler), the plain version's, the bound."""
+    import torch
+
+    from lidar_slam_tpu_torch.ops.cuda import ndt_gather
+
+    ndt_map, cases = gather_cases(workload, cfg)
+    keys, table = ndt_map.keys, ndt_map.packed
+    out = {}
+    for stencil, vids in cases.items():
+        def sorted_call():
+            return ndt_gather.gather_stats_sorted(keys, table, vids)
+
+        def general_call():
+            return ndt_gather.gather_stats_onehot(keys, table, vids)
+
+        with counting_syncs() as syncs:
+            k = sorted_call()
+        check(syncs[0] == 0, f"K3 {stencil}: {syncs[0]} host syncs in a presorted call")
+        g = general_call()
+        p = ndt_gather.gather_stats_plain(keys, table, vids)
+        check(torch.equal(k, p), f"K3 {stencil}: presorted rows differ from the plain version")
+        check(torch.equal(g, p), f"K3 {stencil}: general-entry rows differ from the plain version")
         err = float((k - p).abs().max())
         hits = int((k[..., 10] > 0.5).sum())
-        ms = device_ms(lambda: ndt_gather.gather_stats_onehot(ndt_map.keys, ndt_map.packed, vids))
-        events = device_events(lambda: ndt_gather.gather_stats_onehot(ndt_map.keys, ndt_map.packed, vids))
-        alone = sum(us / n_calls for key, (n_calls, us) in events.items() if "gather_kernel" in key) / 1e3
-        plain_ms = device_ms(lambda: ndt_gather.gather_stats_plain(ndt_map.keys, ndt_map.packed, vids), reps=3)
-        # keys read once (the sort needs all), the hit rows once, ids in, rows out
-        n_bytes = (ndt_map.keys.numel() * 4 + int(torch.isin(ndt_map.keys, vids[vids >= 0]).sum()) * 64
-                   + vids.numel() * (4 + 64))
+        ms = device_ms(sorted_call)
+        ms_general = device_ms(general_call)
+        events = device_events(sorted_call)
+        check(len(events) == 1 and is_k3_kernel(next(iter(events))),
+              f"K3 {stencil}: device work of 10 presorted calls {events}, expected one kernel and nothing else")
+        n_calls, us = next(iter(events.values()))
+        alone = us / n_calls / 1e3
+        plain_ms = device_ms(lambda: ndt_gather.gather_stats_plain(keys, table, vids), reps=3)
+        n_bytes = gather_work(keys, vids)
         bound_ms, bound_by = bound(n_bytes, 0)
-        log(f"[parity K3 {stencil}] {vids.numel()} ids ({hits} on valid voxels) x {len(ndt_map.keys)} keys: "
-            f"equal to the plain version; K3 {ms:.4f} ms (kernel alone {alone:.4f}, the rest the key sort), "
-            f"plain {plain_ms:.4f} ms (device, median); bound {bound_ms:.5f} ms ({n_bytes} B: {bound_by})")
-        out[stencil] = (ms, plain_ms, err, bound_ms, bound_by)
+        log(f"[parity K3 {stencil}] {vids.numel()} ids ({hits} on valid voxels) x {len(keys)} keys: both entries "
+            f"equal to the plain version, no host sync; presorted {ms:.4f} ms (kernel alone {alone:.4f}, one "
+            f"launch), general {ms_general:.4f} ms (with its key sort), plain {plain_ms:.4f} ms (device, median); "
+            f"bound {bound_ms:.5f} ms ({n_bytes} B: {bound_by})")
+        out[stencil] = {"ms": ms, "alone_ms": alone, "ms_general": ms_general, "plain_ms": plain_ms,
+                        "max_abs_err": err, "bound_ms": bound_ms, "bound_by": bound_by}
     return out
 
 
 def onehot_drive(workload, cfg):
     """Phase 9: the direct7 scan-match drive with gather="onehot" (K3 for
     the stats fetch, the plain derivative math around it). It fetches the
-    same rows as gather="two_level", so the poses are the same."""
-    onehot = scan_match_drive(workload, dataclasses.replace(cfg, gather="onehot"), "direct7")
-    two_level = scan_match_drive(workload, dataclasses.replace(cfg, gather="two_level"), "direct7")
+    same rows as gather="two_level", so the poses are the same. Then a
+    third run of the onehot drive, on frames preprocessed before it, under
+    torch.profiler: K3's device time a frame and the whole device time a
+    frame, and the names of any sort kernels it ran (the map's keys are in
+    order, so none should run). Returns those and the timed ms/frame."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from lidar_slam_tpu_torch.models.registration import build_ndt_map, ndt_align
+    from lidar_slam_tpu_torch.pipeline.front_end import _preprocess
+
+    oh_cfg = dataclasses.replace(cfg, gather="onehot", stencil="direct7")
+    onehot, ms_frame = scan_match_drive(workload, oh_cfg, "direct7")
+    two_level, _ = scan_match_drive(workload, dataclasses.replace(cfg, gather="two_level"), "direct7")
     check(np.array_equal(onehot, two_level), "onehot drive: poses differ from the two_level drive")
     log("[scan-match onehot] poses equal to the gather=two_level drive's")
+
+    map_cloud, all_pts, all_msk, _, guess0 = workload
+    ndt_map = build_ndt_map(map_cloud, oh_cfg)
+    frames = [_preprocess(all_pts[i], all_msk[i], FRAME_CAP, 0.5) for i in range(N_FRAMES)]
+    torch.cuda.synchronize()
+    for _ in range(2):  # a profiler window now and then comes back empty on the card
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            last = predict = torch.as_tensor(guess0)
+            for f in frames:
+                pose = ndt_align(ndt_map, f, predict, oh_cfg).pose
+                last, predict = pose, pose @ torch.linalg.solve(last, pose)
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+        if events:
+            break
+    busy = sum(e.self_device_time_total for e in events) / N_FRAMES / 1e3
+    k3 = sum(e.self_device_time_total for e in events if is_k3_kernel(e.key)) / N_FRAMES / 1e3
+    sorts = sorted({e.key for e in events if "sort" in e.key.lower()})
+    log(f"[scan-match onehot] profiled run: device busy {busy:.4f} ms/frame, K3 {k3:.4f} ms/frame of it "
+        f"({k3 / max(busy, 1e-12):.3f}); sort kernels: {sorts or 'none'}")
+    return {"ms_per_frame": ms_frame, "device_ms_per_frame": busy, "k3_ms_per_frame": k3, "sorts": sorts}
 
 
 def aloam_drive(dev, traj, frames, label):
@@ -955,10 +1038,11 @@ def main() -> int:
     check(launches_front == n_front and k1_front == 0, "the front end: not one ndt_newton launch an alignment")
 
     reset_launches()
-    onehot_drive(workload, cfg)
+    onehot = onehot_drive(workload, cfg)
     launches_k3 = ndt_gather.launches
-    log(f"[launches] K3: {launches_k3} in the onehot scan-match drive")
-    check(launches_k3 > 0, "K3 was not launched by the onehot drive")
+    log(f"[launches] K3: {launches_k3} in the onehot scan-match drives")
+    check(launches_k3 > 0 and onehot["k3_ms_per_frame"] > 0, "K3 was not launched by the onehot drive")
+    check(not onehot["sorts"], f"the onehot drive ran sort kernels: {onehot['sorts']}")
 
     launches_k2 = 0
     for density, (traj, frames) in aloam.items():
@@ -978,6 +1062,7 @@ def main() -> int:
     d7, r27 = parity["direct7"], parity["radius27"]
     n7, n27 = newton["direct7"], newton["radius27"]
     k2 = next(c for c in knn if c["density"] == f"{DENSE:g}" and c["case"] == "odometry")
+    g7, g27 = gather["direct7"], gather["radius27"]
     log(json.dumps({"kernels": [
         {
             "name": "ndt_newton",
@@ -1040,15 +1125,22 @@ def main() -> int:
             "source": "lidar_slam_tpu_torch/csrc/ndt_gather.cu",
             "replaces": "lidar_slam_tpu/ops/pallas/ndt_reduce.py:49",
             "launches": launches_k3,
-            "max_abs_err": max(v[2] for v in gather.values()),
-            "ms": gather["direct7"][0],
-            "plain_ms": gather["direct7"][1],
-            "bound_ms": gather["direct7"][3],
-            "bound_by": gather["direct7"][4],
+            "max_abs_err": max(v["max_abs_err"] for v in gather.values()),
+            "ms": g7["ms"],
+            "plain_ms": g7["plain_ms"],
+            "bound_ms": g7["bound_ms"],
+            "bound_by": g7["bound_by"],
             "library_ms": None,
-            "ms_radius27": gather["radius27"][0],
-            "plain_ms_radius27": gather["radius27"][1],
-            "bound_ms_radius27": gather["radius27"][3],
+            "alone_ms": g7["alone_ms"],
+            "ms_general": g7["ms_general"],
+            "ms_radius27": g27["ms"],
+            "alone_ms_radius27": g27["alone_ms"],
+            "ms_general_radius27": g27["ms_general"],
+            "plain_ms_radius27": g27["plain_ms"],
+            "bound_ms_radius27": g27["bound_ms"],
+            "onehot_drive_ms_per_frame": onehot["ms_per_frame"],
+            "onehot_drive_k3_ms_per_frame": onehot["k3_ms_per_frame"],
+            "onehot_drive_device_ms_per_frame": onehot["device_ms_per_frame"],
         },
     ]}))
     log(smi)

@@ -35,6 +35,13 @@ def config_from_fields(cls, fields: dict):
 def ndt_map_from_numpy(
     origin, count, mean, icov, staticvalue, valid, index, packed, keys, dims, resolution, device=None
 ) -> NDTMap:
+    """The port's NDTMap from the JAX map's leaves. Raises unless the keys
+    meet NDTMap's invariant, checked here once on the host array: strictly
+    rising voxel ids, then a tail of -1 (ascending in unsigned order)."""
+    k = np.asarray(keys, np.int32).reshape(-1)
+    used = int(np.count_nonzero(k >= 0))
+    if not (np.all(k[used:] == -1) and np.all(np.diff(k[:used].astype(np.int64)) > 0)):
+        raise ValueError("NDT map keys must be strictly rising voxel ids followed by -1 (unsigned ascending order)")
     return NDTMap(
         origin=torch.as_tensor(np.array(origin, np.float32).reshape(3)),
         count=_t(count, torch.float32, device),

@@ -104,7 +104,13 @@ class NDTConfig:
 class NDTMap:
     """Dense voxel-Gaussian map. `packed` rows (64 B):
     [0:3] mean, [3] staticvalue, [4:10] icov upper triangle
-    (xx, xy, xz, yy, yz, zz), [10] valid, [11] count, [12:16] pad."""
+    (xx, xy, xz, yy, yz, zz), [10] valid, [11] count, [12:16] pad.
+
+    Invariant: `keys` ascend in unsigned order. The occupied voxels' flat
+    ids rise strictly, then -1 (0xFFFFFFFF unsigned) fills the tail, so
+    compact row j is the j-th key in that order and K3 looks ids up with no
+    sort (`ndt_gather.gather_stats_sorted`). `finalize_ndt_sums` builds
+    keys so; `convert.ndt_map_from_numpy` checks it."""
 
     origin: torch.Tensor  # [3] host float32 grid min corner (metres)
     count: torch.Tensor  # [V] float32

@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from . import build
-from .ndt_gather import gather_stats_onehot
+from .ndt_gather import gather_stats_sorted
 
 NOUT = 32
 UNRESOLVED = 28
@@ -124,7 +124,8 @@ def ndt_reduce_plain(
 
     The stats rows come through the dense `index`, or, when the map's
     compact-row `keys` are given, by key through K3 (the JAX package's
-    `gather="onehot"` fetch; the rows fetched are the same)."""
+    `gather="onehot"` fetch; the rows fetched are the same). Map keys hold
+    NDTMap's order, so K3 takes its presorted entry: one launch a chunk."""
     dev = points.device
     R, t, jang, hang, origin_t = (
         _const(k, a, dev) for k, a in (("R", R), ("t", t), ("jang", jang), ("hang", hang), ("origin", origin))
@@ -152,7 +153,7 @@ def ndt_reduce_plain(
         if keys is None:
             pk = packed[index[vid.long()].long()]  # [C, S, 16]
         else:
-            pk = gather_stats_onehot(keys, packed, torch.where(inb, vid, -2))
+            pk = gather_stats_sorted(keys, packed, torch.where(inb, vid, -2))
         mu = pk[..., 0:3]
         sv = pk[..., 3]
         ixx, ixy, ixz = pk[..., 4], pk[..., 5], pk[..., 6]

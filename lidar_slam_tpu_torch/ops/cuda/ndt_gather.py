@@ -1,15 +1,25 @@
 """K3: the NDT voxel-stat gather by key.
 
-`gather_stats_onehot` replaces the Pallas TPU kernel
+Replaces the Pallas TPU kernel
 `lidar_slam_tpu/ops/pallas/ndt_reduce.py::gather_stats_onehot` with the
-hand-written Hopper kernel `csrc/ndt_gather.cu` (binary search of each id
-in the keys, sorted once here by a stable sort, then a sum of the matching
-rows). On a CUDA tensor it launches that kernel or raises; on a CPU tensor,
-and only there, it runs `gather_stats_plain`, the literal one-hot compare
-and product, chunked over rows.
+hand-written Hopper kernel `csrc/ndt_gather.cu`: each id is looked up in
+keys that ascend in unsigned order (a binary search of every 16th key,
+then one coalesced read of the 16-key segment it lands in, two lanes an
+id) and the matching rows are summed in ascending row order. Two entries:
 
-Both return [N, S, F]: for each id in `vids` [N, S], the sum of the `table`
-rows whose key equals it, and a zero row where none does.
+- `gather_stats_sorted` takes keys already in that order with row j
+  holding keys[j]: an NDT map's keys (NDTMap's invariant). A call on CUDA
+  tensors is one kernel launch: no sort, no host sync, no allocation but
+  the output.
+- `gather_stats_onehot` takes any keys (unsorted, repeated, -1 anywhere):
+  it sorts them stably in unsigned order and the kernel reads the rows
+  through the permutation.
+
+On a CUDA tensor each launches the kernel or raises; on a CPU tensor, and
+only there, each runs `gather_stats_plain`, the literal one-hot compare and
+product, chunked over rows. Both return [N, S, F]: for each id in `vids`
+[N, S], the sum of the `table` rows whose key equals it, and a zero row
+where none does.
 """
 
 from __future__ import annotations
@@ -47,36 +57,25 @@ def _library() -> ctypes.CDLL:
     lib = build.load("ndt_gather")
     if lib.ndt_gather_launch.argtypes is None:
         lib.ndt_gather_launch.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
         ]
         lib.ndt_gather_launch.restype = ctypes.c_int
     return lib
 
 
-def gather_stats_onehot(keys, table, vids):
-    """K3 (replaces ops/pallas/ndt_reduce.py::gather_stats_onehot): packed
-    stat rows for every (point, slot) voxel id. `keys` [C] int32 (-1 marks
-    an unused row), `table` [C, 16] float32, `vids` [N, S] int32 (ids absent
-    from `keys`, such as the -2 of an out-of-bounds slot, give a zero row).
-    CUDA tensors launch the Hopper kernel; CPU tensors take the plain
-    version. Returns [N, S, 16] float32."""
+def _launch(keys, perm, table, vids):
     global launches
     dev = vids.device
-    if dev.type == "cpu":
-        return gather_stats_plain(keys, table, vids)
-    if dev.type != "cuda":
-        raise ValueError(f"gather_stats_onehot: unsupported device {dev}")
     c = keys.shape[0]
     n, s = vids.shape
     build.check_tensor("keys", keys, torch.int32, dev, (c,))
     build.check_tensor("table", table, torch.float32, dev, (c, ROW))
     build.check_tensor("vids", vids, torch.int32, dev)
-    if table.data_ptr() % 16:
-        raise ValueError("table must be 16-byte aligned")
-
-    sorted_keys, perm = torch.sort(keys, stable=True)
-    perm = perm.to(torch.int32)
+    if keys.data_ptr() % 16 or table.data_ptr() % 16:
+        raise ValueError("keys and table must be 16-byte aligned")
+    if n * s >= 2**31:
+        raise ValueError(f"{n * s} ids overflow the kernel's int id index")
     out = torch.empty((n, s, ROW), dtype=torch.float32, device=dev)
     if n * s == 0:
         return out
@@ -84,10 +83,46 @@ def gather_stats_onehot(keys, table, vids):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.ndt_gather_launch(
-            sorted_keys.data_ptr(), perm.data_ptr(), c, table.data_ptr(), vids.data_ptr(), n * s,
-            out.data_ptr(), stream,
+            keys.data_ptr(), None if perm is None else perm.data_ptr(), c, table.data_ptr(), vids.data_ptr(),
+            n * s, out.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(f"ndt_gather kernel launch failed: cudaError {err}")
     launches += 1
     return out
+
+
+def _device(vids, name):
+    dev = vids.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {dev}")
+    return dev
+
+
+def gather_stats_sorted(keys, table, vids):
+    """K3 on keys that ascend in unsigned order, row j holding keys[j]: an
+    NDT map's `keys` [C+1] and `packed` [C+1, 16] (NDTMap's invariant; keys
+    in another order give wrong rows, not an error). `vids` [N, S] int32
+    (ids absent from `keys`, such as the -2 of an out-of-bounds slot, give a
+    zero row). CUDA tensors launch the Hopper kernel once, with no sort and
+    no host sync; CPU tensors take the plain version. Returns [N, S, 16]
+    float32."""
+    if _device(vids, "gather_stats_sorted").type == "cpu":
+        return gather_stats_plain(keys, table, vids)
+    return _launch(keys, None, table, vids)
+
+
+def gather_stats_onehot(keys, table, vids):
+    """K3 (replaces ops/pallas/ndt_reduce.py::gather_stats_onehot) for any
+    keys: `keys` [C] int32 in any order (-1 marks an unused row, a repeated
+    key sums its rows in row order), `table` [C, 16] float32, `vids` [N, S]
+    int32. CUDA tensors sort the keys (stable, unsigned order) and launch
+    the Hopper kernel through the permutation; CPU tensors take the plain
+    version. Returns [N, S, 16] float32."""
+    dev = _device(vids, "gather_stats_onehot")
+    if dev.type == "cpu":
+        return gather_stats_plain(keys, table, vids)
+    build.check_tensor("keys", keys, torch.int32, dev, (keys.shape[0],))
+    # flipping the sign bit turns unsigned order into signed order
+    flipped, perm = torch.sort(keys ^ torch.iinfo(torch.int32).min, stable=True)
+    return _launch(flipped ^ torch.iinfo(torch.int32).min, perm.to(torch.int32), table, vids)

@@ -74,17 +74,40 @@ def scatter_sum(target, index, values, keep):
     """A copy of `target` with the rows of `values` added at `index` [N]
     (index_add along dim 0) where `keep` [N] holds; other rows are dropped.
 
-    The sums are taken in the same order on every run: on CUDA, index_put_
+    The sums are taken in the same order on every run, each row as
+    target[i] + v_first + ... + v_last in input order. On CUDA, index_put_
     with accumulate sorts the indices and adds each index's values in
     sequence, where index_add uses float atomics whose order, and thus
     rounding, changes from run to run. That sequence is serial per index,
     so each dropped row gets a scratch row of its own past the end (one
     shared row would gather every padded row into one serial run of ~1e5
-    adds, ~10 ms on an H100)."""
+    adds, ~10 ms on an H100). On the CPU, index_put_ adds in thread order,
+    so there a stable sort of the kept indices lays each row out as its
+    target value followed by its values in input order, and a segment sum
+    adds them in that sequence: the one-thread index_put_'s result at any
+    thread count."""
+    if target.device.type == "cpu":
+        return _scatter_sum_cpu(target, index, values, keep)
     n, rows = index.shape[0], target.shape[0]
     idx = torch.where(keep, index, rows + torch.arange(n, device=index.device))
     out = torch.cat([target, target.new_zeros((n, *target.shape[1:]))])
     return out.index_put_((idx,), values, accumulate=True)[:rows]
+
+
+def _scatter_sum_cpu(target, index, values, keep):
+    idx, perm = torch.sort(index[keep], stable=True)
+    out = target.clone()
+    if idx.numel() == 0:
+        return out
+    rows, counts = torch.unique_consecutive(idx, return_counts=True)
+    lengths = counts + 1  # each segment: the target row, then its values
+    starts = torch.cumsum(lengths, 0) - lengths
+    data = values.new_empty((idx.numel() + rows.numel(), *values.shape[1:]))
+    data[starts] = target[rows]
+    segment = torch.repeat_interleave(torch.arange(rows.numel()), counts)
+    data[torch.arange(idx.numel()) + segment + 1] = values[keep][perm]
+    out[rows] = torch.segment_reduce(data, "sum", lengths=lengths, axis=0)
+    return out
 
 
 def voxel_downsample(cloud: PointCloud, leaf_size, out_capacity: Optional[int] = None) -> PointCloud:

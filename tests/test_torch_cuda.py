@@ -29,7 +29,7 @@ K2 and K3 are compared exactly: K2 computes each distance with the same
 float32 operations as its plain version (no FMA contraction) and breaks
 ties on the same row, with every compiled number of lanes per query and
 for any query order; K3 sums the same rows (one, or two in
-either order).
+either order), and a longer run of equal keys in ascending row order.
 """
 
 import dataclasses
@@ -466,6 +466,8 @@ def _gather_inputs(dev, seed=0):
 
 
 def test_gather_kernel_matches_plain(dev):
+    """The general entry (keys unsorted, one repeated, -1 in the tail)
+    against the plain version, to the bit."""
     keys, table, vids, used = _gather_inputs(dev)
     before = ndt_gather.launches
     k = ndt_gather.gather_stats_onehot(keys, table, vids)
@@ -478,15 +480,104 @@ def test_gather_kernel_matches_plain(dev):
     assert not k[vids == -2].any()
 
 
+def test_gather_kernel_long_runs(dev):
+    """Runs of equal keys that cross fence segments (lengths 1-300, some
+    ending on a segment's last key) and keys that fill whole segments: each
+    run's rows summed in ascending row order, as a numpy running sum adds
+    them; ids between and past the keys give zero rows."""
+    rng = np.random.default_rng(4)
+    lengths = np.concatenate([rng.integers(1, 300, 60), [16, 32, 64, 15, 17, 63, 65, 1]])
+    ids = np.cumsum(rng.integers(2, 9, len(lengths))).astype(np.int32)
+    keys = np.repeat(ids, lengths)
+    keys = np.concatenate([keys, np.full(37, -1, np.int32)])
+    order = rng.permutation(len(keys))  # rows in any order: the wrapper sorts
+    keys = keys[order]
+    table = rng.normal(size=(len(keys), 16)).astype(np.float32)
+    vids = np.concatenate([ids, ids - 1, [ids[-1] + 1, 2**31 - 1, -2, 0]]).astype(np.int32)
+    want = np.zeros((len(vids), 16), np.float32)
+    for i, v in enumerate(vids):
+        rows = np.flatnonzero(keys == v)  # ascending row order
+        if len(rows):
+            want[i] = np.add.accumulate(table[rows], axis=0)[-1]
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    k = ndt_gather.gather_stats_onehot(t(keys), t(table), t(vids[:, None]))
+    np.testing.assert_array_equal(k[:, 0].cpu().numpy(), want)
+    srt = np.argsort(keys.view(np.uint32), kind="stable")  # the same keys presorted: rows in key order
+    s = ndt_gather.gather_stats_sorted(t(keys[srt]), t(table[srt]), t(vids[:, None]))
+    np.testing.assert_array_equal(s[:, 0].cpu().numpy(), want)
+
+
+def _map_vids(m, src, stencil):
+    cell = torch.floor((src - torch.as_tensor(m.origin, device=src.device)) / m.resolution).to(torch.int32)
+    cand = cell[:, None, :] + torch.as_tensor(ndt_fused.STENCIL_OFFSETS[stencil], device=src.device)[None]
+    dims = torch.as_tensor(m.dims, dtype=torch.int32, device=src.device)
+    inb = torch.all((cand >= 0) & (cand < dims), dim=-1)
+    vid = (cand[..., 0] * m.dims[1] + cand[..., 1]) * m.dims[2] + cand[..., 2]
+    return torch.where(inb, vid, -2).contiguous()
+
+
+@pytest.mark.parametrize("cap", [8192, 64], ids=["tail", "full"])
+@pytest.mark.parametrize("stencil", ["direct7", "radius27"])
+def test_sorted_gather_matches_plain_on_map(dev, cap, stencil):
+    """The presorted entry on a map's keys and table and the stencil ids of
+    its points (some off the grid: -2), to the bit: with room for
+    every voxel (a -1 tail), and a full compact table (every row used but
+    the sentinel)."""
+    m, src, _, _ = _inputs(dev)
+    if cap != CFG.max_compact_voxels:
+        cloud = PointCloud.from_points(_scene(), device=dev)
+        m = build_ndt_map(cloud, dataclasses.replace(CFG, max_compact_voxels=cap), origin=ORIGIN)
+    used = int((m.keys >= 0).sum())
+    assert (used == cap) == (cap == 64)
+    vids = _map_vids(m, src, stencil)
+    before = ndt_gather.launches
+    k = ndt_gather.gather_stats_sorted(m.keys, m.packed, vids)
+    assert ndt_gather.launches == before + 1
+    p = ndt_gather.gather_stats_plain(m.keys, m.packed, vids)
+    assert torch.equal(k, p) and int((k[..., 10] > 0.5).sum()) > 100
+
+
+def test_sorted_gather_is_one_kernel_and_no_sync(dev):
+    """A presorted call makes no host sync (sync debug mode "error" raises
+    on one) and runs one kernel on the device, no sort, copy or fill: 3
+    calls in a torch.profiler window show 3 launches of it and nothing
+    else. A window now and then comes back empty, so up to 3 are taken."""
+    from torch.profiler import ProfilerActivity, profile
+
+    m, src, _, _ = _inputs(dev)
+    vids = _map_vids(m, src, "radius27")
+    ndt_gather.gather_stats_sorted(m.keys, m.packed, vids)  # warm-up: the build and the first launch
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ndt_gather.gather_stats_sorted(m.keys, m.packed, vids)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                ndt_gather.gather_stats_sorted(m.keys, m.packed, vids)
+            torch.cuda.synchronize()
+        device_work = [(e.key, e.count) for e in prof.key_averages() if e.self_device_time_total > 0]
+        if device_work:
+            break
+    assert len(device_work) == 1 and "ndt_gather" in device_work[0][0] and device_work[0][1] == 3, device_work
+
+
 def test_gather_wrapper_rejects_bad_inputs(dev):
     keys, table, vids, _ = _gather_inputs(dev)
     before = ndt_gather.launches
-    with pytest.raises(ValueError):  # CPU keys, CUDA ids
-        ndt_gather.gather_stats_onehot(keys.cpu(), table, vids)
-    with pytest.raises(ValueError):  # dtype
-        ndt_gather.gather_stats_onehot(keys, table.double(), vids)
-    with pytest.raises(ValueError):  # non-contiguous
-        ndt_gather.gather_stats_onehot(keys, table, vids.t().contiguous().t())
+    for entry in (ndt_gather.gather_stats_onehot, ndt_gather.gather_stats_sorted):
+        with pytest.raises(ValueError):  # CPU keys, CUDA ids
+            entry(keys.cpu(), table, vids)
+        with pytest.raises(ValueError):  # dtype
+            entry(keys, table.double(), vids)
+        with pytest.raises(ValueError):  # non-contiguous
+            entry(keys, table, vids.t().contiguous().t())
+        with pytest.raises(ValueError):  # a table of another length
+            entry(keys, table[1:], vids)
+    with pytest.raises(ValueError, match="aligned"):  # keys off a 16-byte boundary
+        ndt_gather.gather_stats_sorted(keys[1:], table[1:], vids)
     assert ndt_gather.launches == before
 
 

@@ -1,0 +1,131 @@
+"""Kernel K3's presorted entry and the NDT map's key order, against the JAX
+package.
+
+K3 (`ops/cuda/ndt_gather.py`) looks ids up in keys that ascend in unsigned
+order: an NDT map's keys are built so (NDTMap's invariant: strictly rising
+voxel ids, then a tail of -1), so a map's gather needs no sort. These tests
+hold the port's maps and the JAX package's maps to that order, the
+converter to checking it, and the presorted entry on CPU tensors (its plain
+version) to the JAX Pallas gather in interpret mode, exactly: each id
+matches at most one key of a map, so each output row is one table row or
+zeros on both sides.
+"""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from lidar_slam_tpu.models.registration import ndt as jndt
+from lidar_slam_tpu.ops import PointCloud as JCloud
+from lidar_slam_tpu.ops.pallas import ndt_reduce as jreduce
+
+from lidar_slam_tpu_torch import convert
+from lidar_slam_tpu_torch.models.registration import ndt as tndt
+from lidar_slam_tpu_torch.ops import PointCloud as TCloud
+from lidar_slam_tpu_torch.ops.cuda import ndt_fused, ndt_gather
+
+from test_torch_ndt import CFG_J, CFG_T, ORIGIN, make_scene, port_map_of
+
+# max_compact_voxels: room for every occupied voxel (a -1 tail), and too
+# little (a full table: the cap's rows all used, only the sentinel row -1)
+CAPS = {"tail": 1024, "full": 48}
+
+
+def _maps(cap):
+    pts = make_scene(20, 50, seed=1)
+    cfg_j = dataclasses.replace(CFG_J, max_compact_voxels=cap)
+    cfg_t = dataclasses.replace(CFG_T, max_compact_voxels=cap)
+    jm = jndt.build_ndt_map(JCloud.from_points(pts), cfg_j, origin=jnp.asarray(ORIGIN))
+    tm = tndt.build_ndt_map(TCloud.from_points(pts), cfg_t, origin=ORIGIN)
+    return jm, tm, cfg_j
+
+
+def _assert_map_order(keys):
+    """Strictly rising ids, then -1 only: ascending as uint32."""
+    keys = np.asarray(keys)
+    used = int((keys >= 0).sum())
+    assert used > 0 and np.all(keys[used:] == -1) and np.all(np.diff(keys[:used]) > 0)
+    u = keys.view(np.uint32)
+    assert np.all(np.diff(u.astype(np.int64)) >= 0)
+    return used
+
+
+@pytest.mark.parametrize("case", CAPS)
+def test_map_keys_ascend_unsigned(case):
+    """The port's finalize_ndt_sums keys, the JAX package's from both of its
+    constructors (finalize_ndt_sums and _pack_rows, the sharded build's)
+    and the converted map's: the same keys, in NDTMap's order."""
+    jm, tm, cfg_j = _maps(CAPS[case])
+    used = _assert_map_order(jm.keys)
+    assert (used == CAPS[case]) == (case == "full")
+    np.testing.assert_array_equal(tm.keys.numpy(), np.asarray(jm.keys))
+    v = int(np.prod(jm.dims))
+    packed = jndt._pack_rows(jm.origin, jm.count, jm.mean, jm.icov, jm.staticvalue, jnp.zeros((v, 16)),
+                             jm.valid, jm.dims, cfg_j)
+    np.testing.assert_array_equal(np.asarray(packed.keys), np.asarray(jm.keys))
+    np.testing.assert_array_equal(port_map_of(jm).keys.numpy(), np.asarray(jm.keys))
+
+
+def _break_order(how, k, used):
+    """Break NDTMap's key order in `k` (in place) in one way."""
+    if how == "falling":
+        k[[0, 1]] = k[[1, 0]]
+    elif how == "repeated":
+        k[1] = k[0]
+    elif how == "id_after_tail":
+        k[used + 1] = k[used - 1] + 1
+    else:  # a negative id other than -1
+        k[0] = -2
+
+
+@pytest.mark.parametrize("how", ["falling", "repeated", "id_after_tail", "negative_id"])
+def test_converter_rejects_keys_out_of_order(how):
+    jm, _, _ = _maps(CAPS["tail"])
+    leaves = {k: np.asarray(getattr(jm, k)) for k in
+              ("origin", "count", "mean", "icov", "staticvalue", "valid", "index", "packed", "keys")}
+    leaves["keys"] = leaves["keys"].copy()
+    _break_order(how, leaves["keys"], int((leaves["keys"] >= 0).sum()))
+    with pytest.raises(ValueError, match="unsigned ascending"):
+        convert.ndt_map_from_numpy(**leaves, dims=jm.dims, resolution=jm.resolution)
+
+
+@pytest.mark.parametrize("case", CAPS)
+@pytest.mark.parametrize("stencil", ["direct7", "radius27"])
+def test_sorted_entry_matches_reference(case, stencil):
+    """The presorted entry on a map's keys and the stencil ids of its points
+    (some off the grid: -2), plus ids past the last key and absent ids,
+    against the JAX Pallas gather in interpret mode: equal to the bit. On
+    CPU tensors it takes the plain version and launches nothing. Both read
+    the JAX map's table (carried across by the converter)."""
+    jm = _maps(CAPS[case])[0]
+    tm = port_map_of(jm)
+    rng = np.random.default_rng(3)
+    pts = make_scene(20, 50, seed=1)[rng.choice(1000, 300, replace=False)]
+    pts[:10] += np.float32([40.0, 0.0, 0.0])  # off the grid
+    cell = np.floor((pts - ORIGIN) / tm.resolution).astype(np.int32)
+    cand = cell[:, None, :] + ndt_fused.STENCIL_OFFSETS[stencil][None]
+    dims = np.asarray(tm.dims)
+    inb = np.all((cand >= 0) & (cand < dims), axis=-1)
+    vids = np.where(inb, (cand[..., 0] * dims[1] + cand[..., 1]) * dims[2] + cand[..., 2], -2).astype(np.int32)
+    keys = np.asarray(jm.keys)
+    vids[-1, :3] = [keys[keys >= 0].max() + 1, int(np.prod(dims)) + 5, 2**31 - 1]  # past the last key
+    assert (vids == -2).any() and np.isin(vids, keys).any()
+    j = np.asarray(jreduce.gather_stats_onehot(jm.keys, jm.packed, jnp.asarray(vids), interpret=True))
+    before = ndt_gather.launches
+    t = ndt_gather.gather_stats_sorted(tm.keys, tm.packed, torch.as_tensor(vids))
+    assert ndt_gather.launches == before
+    assert t.shape == (*vids.shape, 16)
+    np.testing.assert_array_equal(t.numpy(), j)
+    np.testing.assert_array_equal(t.numpy(), ndt_gather.gather_stats_plain(tm.keys, tm.packed,
+                                                                           torch.as_tensor(vids)).numpy())
+    assert not t.numpy()[~np.isin(vids, keys[keys >= 0])].any()
+
+
+def test_entries_reject_other_devices():
+    keys, table, vids = torch.zeros(4, dtype=torch.int32), torch.zeros(4, 16), torch.zeros((2, 3), dtype=torch.int32)
+    for entry in (ndt_gather.gather_stats_sorted, ndt_gather.gather_stats_onehot):
+        with pytest.raises(ValueError, match="unsupported device"):
+            entry(keys.to("meta"), table.to("meta"), vids.to("meta"))

@@ -194,12 +194,12 @@ def test_plain_order_sensitivity(stencil, orders, capsys):
     points in another order, so that its float32 sums round otherwise,
     stops elsewhere: some order tried moves the pose by more than the
     1e-4 a near start is held to (by 0.6-5 mm), and every order stays within
-    trans_eps and two iterations. The test pins torch to one CPU thread,
-    map build included: with several, the map's stats differ from build to
-    build (the CPU's index_put_ accumulate under scatter_sum adds in thread
-    order, up to 7e-3 on a stat here), the far start turns that into
-    centimetres, and the readings (printed, pytest -s) followed the thread
-    count a test worker was given."""
+    trans_eps and two iterations. The test pins torch to one CPU thread:
+    the map build gives the same stats at any thread count (scatter_sum's
+    fixed-order CPU path), but the plain version's own torch reductions
+    split their sums by thread count, so the readings (printed, pytest -s)
+    would follow the thread count a test worker was given, and at some
+    counts no order tried moves the pose past 1e-4."""
     N = ndt_newton
     threads = torch.get_num_threads()
     torch.set_num_threads(1)

@@ -187,6 +187,48 @@ class TestVoxelDownsample:
             torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
             assert torch.equal(target, before)  # a new tensor; the input is untouched
 
+    def test_scatter_sum_is_thread_count_free(self, monkeypatch):
+        """The CPU map build gives the same stats, to the bit, at 1 and at 8
+        threads, and they are the one-thread index_put_ accumulate's (each
+        row: its start value, then its values in input order). A first
+        scatter into zeros, then one into those sums (a nonzero start)."""
+        from lidar_slam_tpu_torch.models.registration import ndt as tndt
+
+        rng = np.random.default_rng(5)
+        pts = rng.normal(0.0, 1.5, size=(60000, 3)).astype(np.float32)  # ~500 points a voxel at the core
+        mask = torch.as_tensor(rng.random(len(pts)) < 0.9)
+        cfg = tndt.NDTConfig(grid_dims=(16, 16, 16), max_compact_voxels=4096)
+        origin = np.float32([-8.0, -8.0, -8.0])
+
+        def sums():
+            s = tndt.empty_ndt_sums(origin, cfg)
+            s = tndt.scatter_to_sums(s, torch.as_tensor(pts), mask)
+            return tndt.scatter_to_sums(s, torch.as_tensor(pts[::-1].copy()), mask.flip(0), sign=-0.5)
+
+        def index_put_sum(target, index, values, keep):
+            n, rows = index.shape[0], target.shape[0]
+            idx = torch.where(keep, index, rows + torch.arange(n))
+            out = torch.cat([target, target.new_zeros((n, *target.shape[1:]))])
+            return out.index_put_((idx,), values, accumulate=True)[:rows]
+
+        threads = torch.get_num_threads()
+        try:
+            torch.set_num_threads(1)
+            one = sums()
+            with monkeypatch.context() as m:
+                m.setattr(tndt, "scatter_sum", index_put_sum)
+                ref = sums()
+            torch.set_num_threads(8)
+            eight = sums()
+        finally:
+            torch.set_num_threads(threads)
+        for field in ("count", "psum", "ppsum", "wsum"):
+            assert torch.equal(getattr(one, field), getattr(eight, field)), field
+            assert torch.equal(getattr(one, field), getattr(ref, field)), field
+        a, b = tndt.finalize_ndt_sums(one, cfg), tndt.finalize_ndt_sums(eight, cfg)
+        assert int((a.keys >= 0).sum()) > 100
+        assert torch.equal(a.packed, b.packed) and torch.equal(a.keys, b.keys)
+
     def test_all_masked(self):
         pts = np.ones((64, 3), np.float32)
         t = t_voxel_downsample(
