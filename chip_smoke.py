@@ -3,7 +3,9 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths on the card. NDT scan-to-map tracking runs at
+Drives the port's three paths on the card: tracking, A-LOAM and the mapping
+back half (loop closure, pose-graph optimization, a whole mapping session,
+phases 11-13). NDT scan-to-map tracking runs at
 the KITTI HDL-64 operating point of bench.py (raw scans padded to 131 072
 points, frames of <= 32 768 points, 1 m NDT voxels on a 256 x 256 x 64
 grid, 65 536 compact voxels, a 20-keyframe local map); the A-LOAM front end
@@ -53,11 +55,41 @@ grid) on bench.py's aloam_leg world and trajectory, at bench.py's density
      error (guard 0.3 m mean), both runs equal, one host sync per batch;
      a third run under torch.profiler for the device's busy time a sweep
      and its idle share; K2 launched 10 times a sweep;
- 11. the kernels line: every kernel with its launches on its path, its
+ 11. loop closure at LoopClosingConfig() widths on bench.py's
+     loop_verify_leg hairpin (42 keyframes of 16 384-point scans):
+     LoopClosing.update on every keyframe, one ndt_newton launch a
+     verification attempt; a loop accepted (fitness <= 0.2, relative pose
+     within 0.2 m of the truth), the false pair (1, 14) rejected, at most
+     two host syncs an attempt; ndt_newton against its plain version at the
+     loop shape (a 160 x 160 x 40 radius27 map of the 0.3 m submap) from
+     the keyframe pose (check_poses) and from a far guess (its sums at its
+     final pose, its fitness within the gate), the fitness within FIT_TOL
+     of a float64 brute-force NN; detect and verify ms, the kernel's device
+     time and bound there;
+ 12. bench.py's two pose graphs (366 nodes, dense Cholesky; 2 048 nodes,
+     PCG): chi2 below 5 % of its start, the card's solve against the port's
+     CPU solve, ms an LM iteration, at most one host sync an iteration and
+     none in the linear solve;
+ 13. a mapping session as the CLI wires it: FrontEnd (phase 6's operating
+     point), BackEnd(BackEndConfig()) and LoopClosing (phase 11's config)
+     over a 132-frame hairpin of raw HDL-64-sized scans, ending in
+     force_optimize: a loop closed, one ndt_newton launch an alignment, the
+     optimized keyframes within SESSION_TOL of the odometry's error to the
+     truth; ms/frame and the back half's ms a keyframe. Then the back half
+     again over the front end's poses with an arbitrary drift added
+     (DRIFT_*, a stress input): a loop closed and the drift taken out. With
+     `--session-out FILE` both runs' odometry, keyframes, loop edges and
+     optimized poses are saved for session_witness.py, which replays them
+     through the JAX back end;
+ 14. the kernels line: every kernel with its launches on its path, its
      device time beside its plain version's and its bound (the larger of
      the bytes it must move over 3.35 TB/s and its fp32 FLOPs over 67
      TFLOP/s, counted from this run's inputs); K2's headline is DENSE's
-     odometry surf search, its other searches under "cases".
+     odometry surf search, its other searches under "cases"; ndt_newton's
+     launches count the loop-closure and session paths too, and its `_loop`
+     fields are phase 11's.
+
+The new phases print the card's name and power limit on each summary line.
 
 Any failed check ends the run with a non-zero exit code. The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -67,6 +99,8 @@ Imports nothing of JAX.
 import contextlib
 import dataclasses
 import json
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -87,6 +121,24 @@ TOL = {"score": dict(rtol=2e-4, atol=0.0), "grad": dict(rtol=2e-3, atol=1e-3), "
 POSE_TOL = 1e-4  # ndt_newton against the host loop and its plain version, m and rad (check_poses)
 LONG_RUN = 10  # iterations: more is a start-up frame from the drive's 0.3 m-off first guess
 GUARD = 0.10  # the scan-match pose-error guard (bench.py), m
+LOOP_SCAN_POINTS = 16384  # bench.py loop_verify_leg's scan size
+FIT_TOL = 1e-3  # the loop fitness against a float64 brute-force NN, absolute (m^2)
+# a pose graph solved on the card against the port's CPU solve of the same arrays, per graph:
+# positions (m), rotation entries, chi2 (relative). LM accept/reject turns on float32 rounding; the
+# 366-node graph converges, the 2 048-node one stops at its 30-iteration cap mid-descent, where the
+# LM path's rounding shows (on an H100 80GB HBM3: 2.9e-4 / 3.2e-6 / 1.5e-6 and 1.7e-2 / 4.3e-4 / 1.7e-5)
+GRAPH_TOL = {"366 nodes": (1e-3, 1e-4, 1e-4), "2048 nodes": (5e-2, 2e-3, 1e-4)}
+# The session as the CLI wires it: the front end tracks the synthetic corridor to ~2 cm, which
+# leaves the loop edges nothing to take out, and the solve spreads their own error (the
+# verification's, cm) along the loop. The optimized keyframes' mean error to the truth may exceed
+# the odometry's by at most SESSION_TOL m (on an H100 80GB HBM3: 0.0165 -> 0.0182 m); the JAX back
+# end replayed over the same keyframes and loop edges (session_witness.py) is the witness.
+SESSION_TOL = 5e-3
+# A stress input, not the CLI's traffic: the session's back half replayed over the front end's
+# poses with an arbitrary drift a frame (the translation scaled by 1 + DRIFT_SCALE and a yaw of
+# DRIFT_YAW rad added), which the loop must then take out: the optimized keyframes must end nearer
+# the truth than the drifted odometry.
+DRIFT_YAW, DRIFT_SCALE = 5e-4, 5e-3
 # One H100 SXM (the data sheet): HBM bytes/s and fp32 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
@@ -379,7 +431,6 @@ def newton_parity(workload, cfg, stencil):
     from lidar_slam_tpu_torch.models.registration import build_ndt_map, ndt_align
     from lidar_slam_tpu_torch.models.registration.ndt import _matrix_to_pose, _pose_to_matrix, ndt_align_host_loop
     from lidar_slam_tpu_torch.ops.cuda import ndt_newton as N
-    from lidar_slam_tpu_torch.ops.cuda.ndt_fused import ndt_reduce_plain
     from lidar_slam_tpu_torch.pipeline.front_end import _preprocess
 
     map_cloud, all_pts, all_msk, gt, guess0 = workload
@@ -393,14 +444,7 @@ def newton_parity(workload, cfg, stencil):
         frame = _preprocess(all_pts[i], all_msk[i], FRAME_CAP, 0.5)
         args = (frame.points, frame.mask, frame.get_weights(), ndt_map.index, ndt_map.packed, ndt_map.origin,
                 torch.as_tensor(_matrix_to_pose(predict), device=frame.points.device))
-        trace = []
-        k = N.ndt_newton(*args, **kw).cpu().numpy()
-        p = N.ndt_newton_plain(*args, **kw, trace=trace).cpu().numpy()
-        R, t, jang, hang = N.pose_coefficients(torch.as_tensor(k[N.POSE], device=frame.points.device))
-        at_k = ndt_reduce_plain(*args[:6], R, t, jang, hang, dims=kw["dims"], resolution=kw["resolution"],
-                                d1=kw["d1"], d2=kw["d2"], stencil=stencil,
-                                weight_derivatives=kw["weight_derivatives"]).cpu().numpy()
-        step = check_sums_at(f"newton {stencil} frame {i}", k, at_k)
+        k, p, trace, at_k, step = newton_case(f"newton {stencil} frame {i}", args, kw, stencil)
         pose = _pose_to_matrix(k[N.POSE])
         gap = pose_gap(pose, _pose_to_matrix(p[N.POSE]))
         err_k, err_p = (pose_gap(_pose_to_matrix(o[N.POSE]), gt[i])[0] for o in (k, p))
@@ -550,6 +594,21 @@ def scan_match_drive(workload, cfg, stencil):
     return poses, dt / N_FRAMES * 1e3
 
 
+def tracking_config():
+    """bench.py:315-332 (front_end_leg): the tracking operating point, 1 m
+    NDT voxels on a 256 x 256 x 64 grid, 65 536 compact voxels, direct7,
+    each alignment one ndt_newton launch on the card."""
+    from lidar_slam_tpu_torch.models.registration import NDTConfig
+    from lidar_slam_tpu_torch.pipeline import FrontEndConfig
+
+    return FrontEndConfig(
+        ndt=NDTConfig(
+            resolution=1.0, grid_dims=(256, 256, 64), point_chunk=8192, max_iter=30,
+            stencil="direct7", gather="auto", max_compact_voxels=65536, fused_window=512,
+        ),
+    )
+
+
 def front_end(dev):
     """Phase 6, second part (bench.py:315-402): FrontEnd.update and
     front_end_drive. Returns the number of alignments they ran: two (coarse
@@ -557,15 +616,9 @@ def front_end(dev):
     import torch
 
     from lidar_slam_tpu_torch.io import SyntheticWorld, make_trajectory, simulate_scan
-    from lidar_slam_tpu_torch.models.registration import NDTConfig
-    from lidar_slam_tpu_torch.pipeline import FrontEnd, FrontEndConfig, front_end_drive, init_front_end_drive
+    from lidar_slam_tpu_torch.pipeline import FrontEnd, front_end_drive, init_front_end_drive
 
-    cfg = FrontEndConfig(
-        ndt=NDTConfig(
-            resolution=1.0, grid_dims=(256, 256, 64), point_chunk=8192, max_iter=30,
-            stencil="direct7", gather="auto", max_compact_voxels=65536, fused_window=512,
-        ),
-    )
+    cfg = tracking_config()
     world = SyntheticWorld.corridor(length=120.0, width=18.0, density=40.0, seed=0)
     traj = make_trajectory(40, speed=0.8)
     scans = [
@@ -962,6 +1015,444 @@ def aloam_drive(dev, traj, frames, label):
     return dt / n * 1e3, pipe
 
 
+def loop_config():
+    """bench.py:821-823 (loop_verify_leg): LoopClosingConfig() with
+    loop_step 1, diff_num 20 and a 20-keyframe Scan Context exclusion: 0.3 m
+    leaves, a 65 536-point submap, a 16 384-point scan, a 160 x 160 x 40 NDT
+    grid, radius27, Scan Context 20 x 60."""
+    from lidar_slam_tpu_torch.models.scan_context import ScanContextConfig
+    from lidar_slam_tpu_torch.pipeline import LoopClosingConfig
+
+    return LoopClosingConfig(loop_step=1, diff_num=20, sc=ScanContextConfig(num_exclude_recent=20))
+
+
+def loop_store(root):
+    """bench.py:812-831: the 60 x 16 m corridor (density 30, seed 9), the
+    14 / 16 / 12 hairpin at 1 m a frame, one 16 384-point scan (45 m range)
+    a keyframe, its returns stored with their ground-truth pose."""
+    from lidar_slam_tpu_torch.io import KeyframeStore, SyntheticWorld, make_hairpin_trajectory, simulate_scan
+
+    world = SyntheticWorld.corridor(length=60.0, width=16.0, density=30.0, seed=9)
+    gt = make_hairpin_trajectory(n_out=14, n_turn=16, n_back=12, speed=1.0, turn_radius=1.0)
+    store = KeyframeStore(root)
+    for i in range(len(gt)):
+        pts, mask, _ = simulate_scan(world, gt[i], t=i * 0.1, max_range=45.0, n_points=LOOP_SCAN_POINTS, seed=900 + i)
+        kept = pts[mask]
+        store.save(i, kept, np.ones(len(kept), bool), gt[i], time=i * 0.1)
+    return gt, store
+
+
+def newton_case(name, args, kw, stencil):
+    """ndt_newton and its plain version on one alignment's inputs `args`:
+    (kernel result, plain result, the plain run's evaluated poses, the
+    plain sums at the kernel's final pose, the kernel sums' Newton-step gap
+    to them, check_sums_at)."""
+    import torch
+
+    from lidar_slam_tpu_torch.ops.cuda import ndt_newton as N
+    from lidar_slam_tpu_torch.ops.cuda.ndt_fused import ndt_reduce_plain
+
+    trace = []
+    k = N.ndt_newton(*args, **kw).cpu().numpy()
+    p = N.ndt_newton_plain(*args, **kw, trace=trace).cpu().numpy()
+    R, t, jang, hang = N.pose_coefficients(torch.as_tensor(k[N.POSE], device=args[0].device))
+    at_k = ndt_reduce_plain(*args[:6], R, t, jang, hang, dims=kw["dims"], resolution=kw["resolution"], d1=kw["d1"],
+                            d2=kw["d2"], stencil=stencil, weight_derivatives=kw["weight_derivatives"]).cpu().numpy()
+    return k, p, trace, at_k, check_sums_at(name, k, at_k)
+
+
+def nn_fitness_f64(target, source, T, max_radius=2.0):
+    """point_nn_fitness_score in float64 by direct differences (no matmul
+    form): the reference for the port's float32 |q|^2 - 2 q.t + |t|^2."""
+    import torch
+
+    T = T.double()
+    x = source.points[source.mask].double() @ T[:3, :3].T + T[:3, 3]
+    tgt = target.points[target.mask].double()
+    d2 = torch.cat([torch.cdist(x[s:s + 1024], tgt, compute_mode="donot_use_mm_for_euclid_dist").amin(dim=1) ** 2
+                    for s in range(0, x.shape[0], 1024)])
+    return float(torch.clamp(d2, max=max_radius**2).mean())
+
+
+def loop_kernel_parity(lc, pair, smi):
+    """Phase 11, second part: ndt_newton against its plain version at the
+    loop shape, on the detected pair's submap and scan (built as
+    `_verify_step` builds them), from the keyframe pose (check_poses,
+    check_sums_at) and from a guess 0.5 m and 3 degrees off (check_sums_at,
+    the fitness within the gate; the poses logged); the fitness at the
+    kernel's pose against a float64 brute-force NN (FIT_TOL); device times
+    of the kernel, its plain version and the fitness; the bound from the
+    plain run's evaluations. Returns the kernels-line fields."""
+    import torch
+
+    from lidar_slam_tpu_torch.geom import euler_xyz_to_matrix
+    from lidar_slam_tpu_torch.models.registration import point_nn_fitness_score
+    from lidar_slam_tpu_torch.models.registration.ndt import _matrix_to_pose, newton_pose
+    from lidar_slam_tpu_torch.ops import PointCloud, voxel_downsample
+    from lidar_slam_tpu_torch.ops.cuda import ndt_newton as N
+    from lidar_slam_tpu_torch.pipeline import loop_closing as L
+
+    cfg = lc.cfg
+    ncfg = dataclasses.replace(cfg.ndt, dense_stats=False)
+    i0, i1 = pair
+    sub_pts, sub_msk, scan_pts, scan_msk = lc._verify_inputs(i0, i1)
+    submap, ndt_map = L._submap_ndt(sub_pts, sub_msk, cfg)
+    scan = voxel_downsample(PointCloud(points=scan_pts, mask=scan_msk), cfg.scan_filter_leaf,
+                            out_capacity=cfg.scan_capacity)
+    kw = newton_kw(ndt_map, ncfg)
+    off = lc.key_poses[i1].copy()
+    off[:3, :3] = off[:3, :3] @ euler_xyz_to_matrix(*torch.tensor([0.0, 0.0, np.deg2rad(3.0)], dtype=torch.float32)).numpy()
+    off[:3, 3] += np.float32([0.4, -0.3, 0.0])
+    res, gaps, iters, plain_iters = {"max_abs_err": 0.0}, [], [], []
+    for label, guess in (("keyframe pose", lc.key_poses[i1]), ("0.5 m, 3 deg off", off)):
+        pose0 = torch.as_tensor(_matrix_to_pose(guess), device=scan.points.device)
+        args = (scan.points, scan.mask, scan.get_weights(), ndt_map.index, ndt_map.packed, ndt_map.origin, pose0)
+        k, p, trace, _, step = newton_case(f"loop newton {label}", args, kw, ncfg.stencil)
+        gap = pose_gap(newton_pose(torch.as_tensor(k)).numpy(), newton_pose(torch.as_tensor(p)).numpy())
+        gaps.append(gap)
+        iters.append(int(k[N.ITERATIONS]))
+        plain_iters.append(int(p[N.ITERATIONS]))
+        res["max_abs_err"] = max(res["max_abs_err"], float(np.abs(k[N.POSE] - p[N.POSE]).max()))
+        T = newton_pose(torch.as_tensor(k).to(scan.points.device))
+        fit = float(point_nn_fitness_score(submap, scan, T))
+        ref = nn_fitness_f64(submap, scan, T)
+        log(f"[loop newton] pair {i0}->{i1} from the {label}: kernel {iters[-1]} iterations, plain "
+            f"{plain_iters[-1]}; kernel - plain {gap[0]:.2e} m, {gap[1]:.2e} rad; gradient difference's step "
+            f"{step:.2e}; fitness {fit:.6f} against float64 {ref:.6f} ({abs(fit - ref):.2e})")
+        check(abs(fit - ref) <= FIT_TOL, f"loop fitness {fit} vs float64 brute force {ref}")
+        res["off_fitness"] = fit
+        if "ms" in res:
+            continue  # timed on the first guess's inputs
+        res["iterations"] = iters[-1]
+        res["ms"] = device_ms(lambda: N.ndt_newton(*args, **kw), reps=20)
+        res["plain_ms"] = device_ms(lambda: N.ndt_newton_plain(*args, **kw), reps=3)
+        res["fitness_ms"] = device_ms(lambda: point_nn_fitness_score(submap, scan, T), reps=10)
+        n_bytes, flops = ndt_work(scan, ndt_map, trace, ncfg)
+        res["bound_ms"], res["bound_by"] = bound(n_bytes, flops)
+        log(f"[loop newton] {int(scan.mask.sum())} scan points x {int((ndt_map.keys >= 0).sum())} voxels of a "
+            f"{int(submap.mask.sum())}-point submap ({ncfg.stencil}, {'x'.join(map(str, ndt_map.dims))} grid): "
+            f"ndt_newton {res['ms']:.4f} ms an alignment of {res['iterations']} iterations, plain "
+            f"{res['plain_ms']:.2f} ms (device, median); bound {res['bound_ms']:.5f} ms ({n_bytes} B, {flops} FLOP "
+            f"in {len(trace)} evaluations: {res['bound_by']}); fitness {res['fitness_ms']:.3f} ms ({smi})")
+    # the path's own guess: from the second, a far start, where a radius27 alignment stops is decided
+    # by float32 rounding (check_poses), so it is logged and its fitness held to the gate
+    check_poses("loop newton", ncfg.stencil, gaps[:1], iters[:1], plain_iters[:1], ncfg.trans_eps)
+    check(res["off_fitness"] <= cfg.fitness_score_limit, f"loop newton from the far guess: fitness {res['off_fitness']}")
+    return res
+
+
+def loop_drive(dev, root, smi):
+    """Phase 11: bench.py's loop_verify_leg on the card. The main path:
+    LoopClosing.update on each of the 42 keyframes, the counts read just
+    after (one ndt_newton launch an attempt). Then: the first accepted
+    loop's fitness (<= 0.2) and relative pose (within 0.2 m of the truth);
+    the false pair (1, 14) rejected; host syncs of one attempt (at most 2:
+    the map build's origin and the pose-and-fitness copy) and of one
+    retrieval; detect and verify ms (wall, synchronised, median of 5) and
+    an attempt's device busy time (torch.profiler); loop_kernel_parity."""
+    import torch
+
+    from lidar_slam_tpu_torch.ops.cuda import ndt_newton
+    from lidar_slam_tpu_torch.pipeline import LoopClosing
+    from lidar_slam_tpu_torch.pipeline import loop_closing as L
+
+    t0 = time.perf_counter()
+    gt, store = loop_store(root)
+    log(f"[workload] loop: {len(gt)} keyframe scans simulated and stored in {time.perf_counter() - t0:.1f} s")
+    lc = LoopClosing(loop_config(), store, data_path=root, device=dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    loops = [lp for i in range(len(gt)) if (lp := lc.update(i, gt[i])) is not None]
+    torch.cuda.synchronize()
+    drive_s = time.perf_counter() - t0
+    launches, attempts = ndt_newton.launches, lc.attempts
+    log(f"[loop] LoopClosing.update over {len(gt)} keyframes: {drive_s * 1e3 / len(gt):.2f} ms a keyframe, "
+        f"{attempts} verification attempts, {launches} ndt_newton launches, accepted "
+        f"{[(lp.index0, lp.index1, round(lp.fitness, 4)) for lp in loops]} ({smi})")
+    check(loops, "loop: no loop accepted on the hairpin")
+    check(launches == attempts > 0, f"loop: {launches} ndt_newton launches in {attempts} verification attempts")
+    lp = loops[0]
+    rel_gt = np.linalg.inv(gt[lp.index0]) @ gt[lp.index1]
+    err = float(np.linalg.norm(lp.relative_pose[:3, 3] - rel_gt[:3, 3]))
+    check(lp.fitness <= 0.2 and err < 0.2, f"loop {lp.index0}->{lp.index1}: fitness {lp.fitness}, {err} m off")
+    before = lc.attempts
+    check(lc._verify(1, 14, 0.0) is None, "loop: the false pair (1, 14) was accepted")
+    false_attempts = lc.attempts - before
+
+    args = lc._verify_inputs(lp.index0, lp.index1)
+    guess = lc.key_poses[lp.index1]
+    with counting_syncs() as attempt_syncs:
+        L._verify_step(*args, guess, lc.cfg)
+    with counting_syncs() as detect_syncs:
+        lc.sc.detect()
+    check(attempt_syncs[0] <= 2, f"loop: {attempt_syncs[0]} host syncs in one verification attempt")
+    detect_ms = host_ms(lc.sc.detect)
+    verify_ms = host_ms(lambda: lc._verify(lp.index0, lp.index1, 0.0))
+    step_ms = host_ms(lambda: L._verify_step(*args, guess, lc.cfg))
+    events = device_events(lambda: L._verify_step(*args, guess, lc.cfg), reps=5)
+    step_busy = sum(us for _, us in events.values()) / 5 / 1e3
+    log(f"[loop] pair {lp.index0}->{lp.index1}: fitness {lp.fitness:.4f}, relative pose {err:.4f} m from the "
+        f"truth; false pair (1, 14) rejected in {false_attempts} attempts; host syncs: {attempt_syncs[0]} an "
+        f"attempt, {detect_syncs[0]} a retrieval; detect {detect_ms:.3f} ms, verify {verify_ms:.2f} ms (store reads "
+        f"included; one attempt on uploaded inputs {step_ms:.2f} ms; wall, median), the attempt's device busy "
+        f"time {step_busy:.3f} ms (torch.profiler) ({smi})")
+    res = loop_kernel_parity(lc, (lp.index0, lp.index1), smi)
+    res.update(launches=launches, attempts=attempts, detect_ms=detect_ms, verify_ms=verify_ms,
+               syncs_per_attempt=attempt_syncs[0])
+    return res
+
+
+def circle_graph(builder, n, radius, rng):
+    """bench.py:207-233 / 276-297: n poses on a circle, odometry edges with
+    N(0, 0.02) se(3) noise chained into the initial guess, one loop edge
+    from the last node to the first; node 0 fixed."""
+    import torch
+
+    from lidar_slam_tpu_torch.geom import se3_exp
+
+    gt = []
+    for i in range(n):
+        th = 2 * np.pi * i / n
+        T = np.eye(4, dtype=np.float32)
+        T[:3, :3] = np.array([[np.cos(th), -np.sin(th), 0], [np.sin(th), np.cos(th), 0], [0, 0, 1]], np.float32)
+        T[:3, 3] = [radius * np.cos(th), radius * np.sin(th), 0.0]
+        gt.append(T)
+    est = [gt[0]]
+    builder.add_se3_node(gt[0], fixed=True)
+    for i in range(1, n):
+        Z = np.linalg.inv(gt[i - 1]) @ gt[i]
+        Zn = se3_exp(torch.as_tensor(rng.normal(0, 0.02, 6).astype(np.float32))).numpy() @ Z
+        est.append((est[-1] @ Zn).astype(np.float32))
+        builder.add_se3_node(est[-1])
+        builder.add_se3_edge(i - 1, i, Zn, noise=[0.5, 0.5, 0.5, 0.01, 0.01, 0.01])
+    builder.add_se3_edge(n - 1, 0, np.linalg.inv(gt[n - 1]) @ gt[0], noise=[0.3, 0.3, 0.3, 0.01, 0.01, 0.01])
+
+
+def pose_graphs(dev, smi):
+    """Phase 12: bench.py's pose_graph_leg graphs (bench.py:194-311) solved
+    on the card: 366 nodes at capacity 384 (the dense Cholesky path,
+    max_iterations 50) and 2 048 nodes (PCG, max_iterations 30). Each: chi2
+    below 5 % of its start; the poses and chi2 within GRAPH_TOL of the
+    port's own CPU solve of the same arrays; a timed solve (wall,
+    synchronised), its device busy time (torch.profiler) and a solve under
+    sync counting (at most one host read an LM iteration); the linear solve
+    alone reads nothing on the host."""
+    import torch
+
+    from lidar_slam_tpu_torch import convert
+    from lidar_slam_tpu_torch.models import graph_optimizer as G
+
+    rng = np.random.default_rng(0)
+    cases = (("366 nodes", 366, 60.0, (384, 384, 8), G.GraphOptimizerConfig(max_iterations=50), True),
+             ("2048 nodes", 2048, 120.0, (2048, 2056, 8), G.GraphOptimizerConfig(max_iterations=30, solver="pcg"),
+              False))
+    out = {}
+    for name, n, radius, caps, cfg, dense in cases:
+        b = G.PoseGraphBuilder(*caps, device=dev)
+        circle_graph(b, n, radius, rng)
+        check(G.uses_dense(cfg, b.max_nodes) == dense, f"pose graph {name}: not on the {'dense' if dense else 'PCG'} path")
+        g = b.to_graph()
+        G.optimize_pose_graph(g, cfg)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        go, st = G.optimize_pose_graph(g, cfg)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        with counting_syncs() as syncs:
+            _, st2 = G.optimize_pose_graph(g, cfg)
+        events = device_events(lambda: G.optimize_pose_graph(g, cfg), reps=1)
+        busy = sum(us for _, us in events.values()) / 1e3
+        asm = G._assemble(g, cfg)
+        grad = G._gradient(asm)
+        lam = torch.full((), cfg.lm_lambda_init, device=dev)
+        with counting_syncs() as solve_syncs:
+            G._solve_dense(asm, lam, grad) if dense else G._solve_pcg(asm, lam, grad, cfg)
+        fields = {f.name: getattr(b, "_" + f.name) for f in dataclasses.fields(G.PoseGraph)}
+        t0 = time.perf_counter()
+        co, cst = G.optimize_pose_graph(convert.pose_graph_from_numpy(fields, device="cpu"), cfg)
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        dpos = float(np.abs(go.poses[:n, :3, 3].cpu().numpy() - co.poses[:n, :3, 3].numpy()).max())
+        drot = float(np.abs(go.poses[:n, :3, :3].cpu().numpy() - co.poses[:n, :3, :3].numpy()).max())
+        dchi2 = abs(st["chi2_after"] - cst["chi2_after"]) / cst["chi2_after"]
+        it = st["iterations"]
+        log(f"[pose graph {name}] {'dense' if dense else 'PCG'}: chi2 {st['chi2_before']:.2f} -> "
+            f"{st['chi2_after']:.5f} in {it} LM iterations, {ms:.1f} ms ({ms / max(it, 1):.3f} ms an iteration; "
+            f"wall, synchronised; device busy {busy:.1f} ms a solve, torch.profiler); {syncs[0]} host syncs in a "
+            f"solve of {st2['iterations']} iterations, "
+            f"{solve_syncs[0]} in the linear solve alone; CPU solve {cst['iterations']} iterations, chi2 "
+            f"{cst['chi2_after']:.5f}, {cpu_ms:.0f} ms; card - CPU: poses {dpos:.2e} m, {drot:.2e} (rotation "
+            f"entries), chi2 {dchi2:.2e} relative ({smi})")
+        check(st["chi2_after"] < 0.05 * st["chi2_before"], f"pose graph {name}: chi2 did not fall below 5 %")
+        check(syncs[0] <= st2["iterations"], f"pose graph {name}: {syncs[0]} host syncs in {st2['iterations']} iterations")
+        check(solve_syncs[0] == 0, f"pose graph {name}: the linear solve synchronised {solve_syncs[0]} times")
+        tol_pos, tol_rot, tol_chi2 = GRAPH_TOL[name]
+        check(dpos <= tol_pos and drot <= tol_rot and dchi2 <= tol_chi2,
+              f"pose graph {name}: card and CPU solves differ ({dpos}, {drot}, {dchi2})")
+        out[name] = {"ms": ms, "iterations": it, "ms_per_iteration": ms / max(it, 1), "syncs": syncs[0], "busy_ms": busy}
+    return out
+
+
+def session_workload():
+    """Phase 13's drive: the loop phase's corridor (16 m wide, density 30,
+    seed 9) lengthened to 100 m, and a hairpin on it of 60 / 16 / 56 frames
+    at 1 m a frame, so that a 2 m keyframe gate leaves more keyframes than
+    the 20-keyframe Scan Context exclusion before the return leg passes the
+    outbound one; a raw HDL-64-sized scan (RAW_CAP points, 80 m) a frame."""
+    from lidar_slam_tpu_torch.io import SyntheticWorld, make_hairpin_trajectory, simulate_scan
+
+    world = SyntheticWorld.corridor(length=100.0, width=16.0, density=30.0, seed=9)
+    gt = make_hairpin_trajectory(n_out=60, n_turn=16, n_back=56, speed=1.0, turn_radius=1.0)
+    scans = [simulate_scan(world, gt[i], t=i * 0.1, max_range=80.0, n_points=RAW_CAP, seed=5000 + i, noise=0.02)[:2]
+             for i in range(len(gt))]
+    return gt, scans
+
+
+def drifted(poses):
+    """The stress odometry: `poses` [N, 4, 4] re-chained from their
+    frame-to-frame motion with the translation scaled by 1 + DRIFT_SCALE and
+    a yaw of DRIFT_YAW added a frame."""
+    c, s = np.cos(DRIFT_YAW), np.sin(DRIFT_YAW)
+    yaw = np.float32([[c, -s, 0, 0], [s, c, 0, 0], [0, 0, 1, 0], [0, 0, 0, 1]])
+    out = [poses[0].astype(np.float32)]
+    for a, b in zip(poses[:-1], poses[1:]):
+        step = (np.linalg.inv(a) @ b).astype(np.float32)
+        step[:3, 3] *= 1.0 + DRIFT_SCALE
+        out.append((out[-1] @ step @ yaw).astype(np.float32))
+    return np.stack(out)
+
+
+def session_run(dev, root, scans, front=None, odometry=None):
+    """The session loop of cli.py:154-199 over `scans`: each frame's
+    odometry (FrontEnd.update on the preloaded frame if `front` =
+    (FrontEnd, preloaded frames) is given, else `odometry[i]`) to
+    BackEnd.update with the frame's returns, each new keyframe to
+    LoopClosing.update, each accepted loop to insert_loop_pose, then
+    force_optimize. Returns the back end, the loop closer, a record (the
+    odometry, the keyframes' frames, each loop edge with the frame that
+    inserted it, the final solve's stats), the session's and the back
+    half's wall seconds (the card synchronised at the end)."""
+    import torch
+
+    from lidar_slam_tpu_torch.io import KeyframeStore
+    from lidar_slam_tpu_torch.pipeline import BackEnd, BackEndConfig, LoopClosing
+
+    store = KeyframeStore(root)
+    be = BackEnd(BackEndConfig(), store=store, device=dev)
+    lc = LoopClosing(loop_config(), store=store, data_path=root, device=dev)
+    rec = {"odom": [], "kf_frames": [], "loops": []}
+    back_s = 0.0
+    t0 = time.perf_counter()
+    for i, (pts, mask) in enumerate(scans):
+        odom = front[0].update(None, preloaded=front[1][i])[0] if front else odometry[i]
+        tb = time.perf_counter()
+        rec["odom"].append(np.asarray(odom, np.float32))
+        kept = pts[mask]
+        if be.update(odom, time=i * 0.1, cloud_points=kept, cloud_mask=np.ones(len(kept), bool)):
+            kf = be.latest_keyframe()
+            rec["kf_frames"].append(i)
+            loop = lc.update(kf.index, kf.pose)
+            if loop is not None:
+                rec["loops"].append((i, loop))
+                be.insert_loop_pose(loop.index0, loop.index1, loop.relative_pose)
+            if be.has_new_optimized():
+                be.get_optimized_poses()
+        back_s += time.perf_counter() - tb
+    tb = time.perf_counter()
+    rec["stats"] = be.force_optimize()
+    torch.cuda.synchronize()
+    back_s += time.perf_counter() - tb
+    return be, lc, rec, time.perf_counter() - t0, back_s
+
+
+def keyframe_errors(gt, be, rec):
+    """Mean and max distance to the truth of the keyframes' odometry and of
+    their optimized poses."""
+    kf_gt = gt[rec["kf_frames"]][:, :3, 3]
+    odo = np.stack([k.pose for k in be.key_frames])[:, :3, 3]
+    e_odo, e_opt = (np.linalg.norm(p - kf_gt, axis=1) for p in (odo, be.optimized_poses[:, :3, 3]))
+    return e_odo, e_opt
+
+
+def mapping_session(dev, root, gt, scans, smi, session_out=None):
+    """Phase 13, the main path of the mapping back half: FrontEnd (phase 6's
+    tracking operating point), BackEnd(BackEndConfig()) and LoopClosing
+    (loop_config()) over session_workload's hairpin, wired as the CLI wires
+    them (session_run). Checks at least one accepted loop, one ndt_newton
+    launch an alignment (two a tracked frame, one a verification attempt)
+    and the optimized keyframes' mean error to the truth within SESSION_TOL
+    of the odometry's. Then the stress run (the back half over `drifted`
+    front-end poses, its counts read apart): a loop accepted, one launch an
+    attempt, the optimized keyframes nearer the truth than the drifted
+    odometry. Saves both runs to `session_out` if given. Returns the
+    launches of both, ms a frame of the session and ms a keyframe of the
+    back half (BackEnd, LoopClosing and the solves: wall, the session
+    synchronised at its end)."""
+    import torch
+
+    from lidar_slam_tpu_torch.ops.cuda import ndt_newton
+    from lidar_slam_tpu_torch.pipeline import FrontEnd
+
+    fe = FrontEnd(tracking_config(), device=dev)
+    fe.set_init_pose(gt[0])
+    loaded = [fe.preload(p, m) for p, m in scans]  # the CLI uploads on its prefetch thread
+    torch.cuda.synchronize()
+    reset_launches()
+    be, lc, rec, total_s, back_s = session_run(dev, os.path.join(root, "cli"), scans, front=(fe, loaded))
+    launches, n_align = ndt_newton.launches, 2 * (len(scans) - 1) + lc.attempts
+    del loaded
+    err_odo, err_opt = keyframe_errors(gt, be, rec)
+    loops = [lp for _, lp in rec["loops"]]
+    loop_err = [float(np.linalg.norm(lp.relative_pose[:3, 3] - (np.linalg.inv(gt[rec["kf_frames"][lp.index0]])
+                                                                  @ gt[rec["kf_frames"][lp.index1]])[:3, 3]))
+                for lp in loops]
+    n_kf, stats = len(be.key_frames), rec["stats"]
+    log(f"[session] {len(scans)} frames, {n_kf} keyframes, {lc.attempts} verification attempts, loops "
+        f"{[(lp.index0, lp.index1, round(lp.fitness, 4)) for lp in loops]} (relative pose to the truth "
+        f"{[round(e, 4) for e in loop_err]} m); {total_s * 1e3 / len(scans):.2f} ms a frame, back half "
+        f"{back_s * 1e3 / n_kf:.2f} ms a keyframe (wall); final solve chi2 {stats['chi2_before']:.4f} -> "
+        f"{stats['chi2_after']:.4f} in {stats['iterations']:.0f} iterations; keyframe error to the truth: odometry "
+        f"mean {err_odo.mean():.4f} max {err_odo.max():.4f} m, optimized mean {err_opt.mean():.4f} max "
+        f"{err_opt.max():.4f} m (bound: odometry + {SESSION_TOL}); {launches} ndt_newton launches in {n_align} "
+        f"alignments ({smi})")
+    check(loops, "session: no loop accepted")
+    check(launches == n_align, f"session: {launches} ndt_newton launches in {n_align} alignments")
+    check(err_opt.mean() <= err_odo.mean() + SESSION_TOL,
+          f"session: the optimized keyframes' mean error {err_opt.mean()} exceeds the odometry's {err_odo.mean()} "
+          f"by more than {SESSION_TOL} m")
+
+    reset_launches()
+    odom_d = drifted(np.stack(rec["odom"]))
+    be_d, lc_d, rec_d, _, back_d = session_run(dev, os.path.join(root, "drift"), scans, odometry=odom_d)
+    launches_d = ndt_newton.launches
+    d_odo, d_opt = keyframe_errors(gt, be_d, rec_d)
+    log(f"[session, drift {DRIFT_SCALE} scale and {DRIFT_YAW} rad a frame: a stress input] {len(be_d.key_frames)} "
+        f"keyframes, {lc_d.attempts} verification attempts, loops "
+        f"{[(lp.index0, lp.index1, round(lp.fitness, 4)) for _, lp in rec_d['loops']]}; back half "
+        f"{back_d * 1e3 / len(be_d.key_frames):.2f} ms a keyframe (wall); keyframe error to the truth: odometry mean "
+        f"{d_odo.mean():.4f} max {d_odo.max():.4f} m, optimized mean {d_opt.mean():.4f} max {d_opt.max():.4f} m; "
+        f"{launches_d} ndt_newton launches ({smi})")
+    check(rec_d["loops"], "session with drift: no loop accepted")
+    check(launches_d == lc_d.attempts, f"session with drift: {launches_d} ndt_newton launches in {lc_d.attempts} attempts")
+    check(d_opt.mean() < d_odo.mean(), "session with drift: the optimized keyframes are no nearer the truth than the odometry")
+
+    if session_out:
+        out = {"gt": np.asarray(gt, np.float32)}
+        for tag, b, r in (("cli", be, rec), ("drift", be_d, rec_d)):
+            loops_r = r["loops"]
+            out.update({
+                f"{tag}_odom": np.stack(r["odom"]), f"{tag}_kf_frames": np.asarray(r["kf_frames"]),
+                f"{tag}_loop_frames": np.asarray([i for i, _ in loops_r], np.int64),
+                f"{tag}_loop_index": np.asarray([(lp.index0, lp.index1) for _, lp in loops_r], np.int64).reshape(-1, 2),
+                f"{tag}_loop_rel": np.asarray([lp.relative_pose for _, lp in loops_r], np.float32).reshape(-1, 4, 4),
+                f"{tag}_optimized": np.asarray(b.optimized_poses, np.float32),
+            })
+        os.makedirs(os.path.dirname(os.path.abspath(session_out)), exist_ok=True)
+        np.savez(session_out, **out)
+        log(f"[session] both runs saved to {session_out}")
+    return {"launches": launches, "launches_drift": launches_d, "ms_per_frame": total_s * 1e3 / len(scans),
+            "back_ms_per_keyframe": back_s * 1e3 / n_kf}
+
+
 def reset_launches():
     from lidar_slam_tpu_torch.ops.cuda import knn_fused, ndt_fused, ndt_gather, ndt_newton
 
@@ -969,8 +1460,14 @@ def reset_launches():
         m.launches = 0
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
+
+    ap = argparse.ArgumentParser(description="Smoke run of the PyTorch / CUDA port on one GPU.")
+    ap.add_argument("--session-out", help="save phase 13's runs (.npz) for session_witness.py")
+    args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check runs only on a GPU", file=sys.stderr)
@@ -1059,6 +1556,17 @@ def main() -> int:
     knn += knn_parity(f"{DENSE:g} after the drive",
                       knn_cases(pipe.state, *pipe.preload(*frames[-1]), after_drive=True)).values()
 
+    # the mapping back half; its stores live in the checkout's build directory
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    loop = loop_drive(dev, os.path.join(work, "loop"), smi)
+    pose_graphs(dev, smi)
+    t0 = time.perf_counter()
+    gt_s, scans_s = session_workload()
+    log(f"[workload] session: {len(scans_s)} scans simulated in {time.perf_counter() - t0:.1f} s")
+    session = mapping_session(dev, os.path.join(work, "session"), gt_s, scans_s, smi, args.session_out)
+    shutil.rmtree(work, ignore_errors=True)
+
     d7, r27 = parity["direct7"], parity["radius27"]
     n7, n27 = newton["direct7"], newton["radius27"]
     k2 = next(c for c in knn if c["density"] == f"{DENSE:g}" and c["case"] == "odometry")
@@ -1070,8 +1578,9 @@ def main() -> int:
             "source": "lidar_slam_tpu_torch/csrc/ndt_newton.cu",
             "replaces": "lidar_slam_tpu/ops/pallas/ndt_fused.py:297",
             "replaces_loop": "lidar_slam_tpu/models/registration/ndt.py:1407",
-            "launches": launches_drive + launches_front,
-            "max_abs_err": max(n7["max_abs_err"], n27["max_abs_err"]),
+            "launches": launches_drive + launches_front + loop["launches"] + session["launches"]
+            + session["launches_drift"],
+            "max_abs_err": max(n7["max_abs_err"], n27["max_abs_err"], loop["max_abs_err"]),
             "ms": n7["ms"],
             "plain_ms": n7["plain_ms"],
             "bound_ms": n7["bound_ms"],
@@ -1087,6 +1596,14 @@ def main() -> int:
             "iterations_radius27": n27["iterations"],
             "align_ms_radius27": n27["align_ms"],
             "host_loop_ms_radius27": n27["host_loop_ms"],
+            "launches_loop_closure": loop["launches"],
+            "launches_session": session["launches"],
+            "launches_session_drift": session["launches_drift"],
+            "ms_loop": loop["ms"],
+            "plain_ms_loop": loop["plain_ms"],
+            "bound_ms_loop": loop["bound_ms"],
+            "bound_by_loop": loop["bound_by"],
+            "iterations_loop": loop["iterations"],
         },
         {
             "name": "ndt_reduce_fused",

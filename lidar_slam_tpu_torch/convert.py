@@ -5,21 +5,27 @@ leaves as numpy arrays (the caller does `np.asarray` on the JAX side) and
 its config fields as plain Python values, and return the port's objects.
 This module never imports jax: it lets one map or pipeline state, built
 once, be stepped by both packages, so each stage's parity is tested apart
-from the stages before it.
+from the stages before it. Like every entry point of the port, a converter
+puts its tensors on the card unless the caller passes device="cpu".
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from . import device as _default_device
+from .models.graph_optimizer import PoseGraph
 from .models.registration import NDTMap, NDTMapSums
+from .models.scan_context import ScanContextConfig, SCManager
 from .ops.pointcloud import PointCloud
 from .pipeline.aloam import AloamState
 
 
 def _t(a, dtype, device):
-    return torch.as_tensor(np.array(a), dtype=dtype).to(device).contiguous()
+    return torch.as_tensor(np.array(a), dtype=dtype).to(_default_device(device)).contiguous()
 
 
 def config_from_fields(cls, fields: dict):
@@ -67,6 +73,23 @@ def ndt_sums_from_numpy(origin, count, psum, ppsum, wsum, dims, resolution, devi
         dims=tuple(int(d) for d in dims),
         resolution=float(resolution),
     )
+
+
+def pose_graph_from_numpy(fields: dict, device=None) -> PoseGraph:
+    """The port's PoseGraph from the JAX PoseGraph's leaves, `fields` =
+    {field name: numpy array}, each copied with its dtype."""
+    dev = _default_device(device)
+    return PoseGraph(**{f.name: torch.tensor(np.asarray(fields[f.name])).to(dev)
+                        for f in dataclasses.fields(PoseGraph)})
+
+
+def sc_manager_from_numpy(descs, count: int, cfg: ScanContextConfig, device=None) -> SCManager:
+    """A port SCManager holding the JAX SCManager's history: its descriptors
+    `descs` [capacity, rings, sectors] (the host mirror) and `count`."""
+    descs = np.asarray(descs, np.float32)
+    mgr = SCManager(cfg, capacity=descs.shape[0], device=device)
+    mgr.load_history(torch.as_tensor(descs[:count].copy()))
+    return mgr
 
 
 def _cloud(points, mask, device=None) -> PointCloud:

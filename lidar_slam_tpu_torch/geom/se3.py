@@ -110,6 +110,26 @@ def se3_log(T):
     return torch.cat([rho, phi], dim=-1)
 
 
+def euler_zyx_to_matrix(roll, pitch, yaw):
+    """R = Rz(yaw) @ Ry(pitch) @ Rx(roll): the Eigen eulerAngles(2,1,0)
+    convention (Magnusson NDT's computeAngleDerivatives)."""
+    cr, sr = torch.cos(roll), torch.sin(roll)
+    cp, sp = torch.cos(pitch), torch.sin(pitch)
+    cy, sy = torch.cos(yaw), torch.sin(yaw)
+    row0 = torch.stack([cy * cp, cy * sp * sr - sy * cr, cy * sp * cr + sy * sr], dim=-1)
+    row1 = torch.stack([sy * cp, sy * sp * sr + cy * cr, sy * sp * cr - cy * sr], dim=-1)
+    row2 = torch.stack([-sp, cp * sr, cp * cr], dim=-1)
+    return torch.stack([row0, row1, row2], dim=-2)
+
+
+def matrix_to_euler_zyx(R):
+    """Inverse of euler_zyx_to_matrix -> (roll, pitch, yaw), pitch clamped."""
+    pitch = torch.arcsin(torch.clamp(-R[..., 2, 0], -1.0, 1.0))
+    roll = torch.atan2(R[..., 2, 1], R[..., 2, 2])
+    yaw = torch.atan2(R[..., 1, 0], R[..., 0, 0])
+    return roll, pitch, yaw
+
+
 def euler_xyz_to_matrix(rx, ry, rz):
     """R = Rx(rx) @ Ry(ry) @ Rz(rz) — the Eigen eulerAngles(0,1,2) convention
     the NDT pose parameterization uses."""
@@ -135,6 +155,54 @@ def matrix_to_euler_xyz(R):
     return rx, ry, rz
 
 
+def quat_to_matrix(q):
+    """Quaternion [..., 4] as (w, x, y, z) -> rotation [..., 3, 3]."""
+    q = q / torch.linalg.norm(q, dim=-1, keepdim=True)
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    row0 = torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)], dim=-1)
+    row1 = torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)], dim=-1)
+    row2 = torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], dim=-1)
+    return torch.stack([row0, row1, row2], dim=-2)
+
+
+def matrix_to_quat(R):
+    """Rotation [..., 3, 3] -> quaternion (w, x, y, z) with w >= 0, by the
+    branch-free Shepperd construction: all four candidates are built and the
+    one whose pivot (trace, or a diagonal excess) is largest is taken, the
+    first on a tie, as the JAX package's argmax does."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def half_sqrt(v):
+        return torch.sqrt(torch.clamp(v, min=0.0)) * 0.5
+
+    def scale(big):
+        return 0.25 / torch.clamp(big, min=_EPS)
+
+    qw0 = half_sqrt(1.0 + tr)
+    s0 = scale(qw0)
+    q0 = torch.stack([qw0, (m21 - m12) * s0, (m02 - m20) * s0, (m10 - m01) * s0], dim=-1)
+    qx1 = half_sqrt(1.0 + m00 - m11 - m22)
+    s1 = scale(qx1)
+    q1 = torch.stack([(m21 - m12) * s1, qx1, (m01 + m10) * s1, (m02 + m20) * s1], dim=-1)
+    qy2 = half_sqrt(1.0 - m00 + m11 - m22)
+    s2 = scale(qy2)
+    q2 = torch.stack([(m02 - m20) * s2, (m01 + m10) * s2, qy2, (m12 + m21) * s2], dim=-1)
+    qz3 = half_sqrt(1.0 - m00 - m11 + m22)
+    s3 = scale(qz3)
+    q3 = torch.stack([(m10 - m01) * s3, (m02 + m20) * s3, (m12 + m21) * s3, qz3], dim=-1)
+
+    pivots = torch.stack([tr, m00 - m11 - m22, m11 - m00 - m22, m22 - m00 - m11], dim=-1)
+    best = torch.argmax(pivots, dim=-1)
+    qs = torch.stack([q0, q1, q2, q3], dim=-2)
+    q = torch.take_along_dim(qs, best[..., None, None].expand(*best.shape, 1, 4), dim=-2)[..., 0, :]
+    w = q[..., :1]
+    q = q * torch.sign(torch.where(w == 0, torch.ones_like(w), w))
+    return q / torch.linalg.norm(q, dim=-1, keepdim=True)
+
+
 def make_pose(R, t):
     """Assemble [..., 4, 4] from [..., 3, 3] and [..., 3]."""
     batch = torch.broadcast_shapes(R.shape[:-2], t.shape[:-1])
@@ -149,6 +217,10 @@ def pose_inverse(T):
     t = T[..., :3, 3]
     Rt = R.transpose(-1, -2)
     return make_pose(Rt, -torch.einsum("...ij,...j->...i", Rt, t))
+
+
+def pose_compose(A, B):
+    return A @ B
 
 
 def transform_points(T, points):

@@ -6,6 +6,7 @@ from .synthetic import (
     make_hairpin_trajectory,
     hdl64_elevations,
 )
+from .keyframe_store import KeyframeStore
 from .trajectory import (
     write_kitti_trajectory,
     read_kitti_trajectory,
@@ -21,6 +22,7 @@ __all__ = [
     "make_trajectory",
     "make_hairpin_trajectory",
     "hdl64_elevations",
+    "KeyframeStore",
     "write_kitti_trajectory",
     "read_kitti_trajectory",
     "ate_rmse",

@@ -12,6 +12,7 @@ from .ndt import (
     ndt_derivatives,
     ndt_align,
 )
+from .fitness import point_nn_fitness_score
 
 __all__ = [
     "NDTConfig",
@@ -26,4 +27,5 @@ __all__ = [
     "finalize_ndt_sums",
     "ndt_derivatives",
     "ndt_align",
+    "point_nn_fitness_score",
 ]

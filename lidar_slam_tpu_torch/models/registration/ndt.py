@@ -758,21 +758,47 @@ def ndt_align(
     kernel on CUDA tensors, its plain version on CPU tensors) and one copy
     of its result to the host; otherwise the host loop runs. Neither needs
     the points sorted (the JAX package's sort_points_by_vid)."""
-    pts = source.points
-    if not (
-        config.resolve_gather(pts.device) == "fused"
+    if not takes_newton_kernel(config, source.points.device):
+        return ndt_align_host_loop(ndt_map, source, init_pose, config)
+    return newton_result(ndt_newton_align(ndt_map, source, init_pose, config).cpu().numpy())
+
+
+def takes_newton_kernel(config: NDTConfig, device) -> bool:
+    """Whether `ndt_align` runs as one `ndt_newton` call on `device`: the
+    fused gather, the Newton solver and no line-search iterations."""
+    return (
+        config.resolve_gather(device) == "fused"
         and config.solver == "newton"
         and config.max_step_iterations == 0
-    ):
-        return ndt_align_host_loop(ndt_map, source, init_pose, config)
+    )
+
+
+def ndt_newton_align(ndt_map: NDTMap, source: PointCloud, init_pose, config: NDTConfig) -> torch.Tensor:
+    """The alignment of `ndt_align` for a configuration that takes the
+    kernel: one `ndt_newton` call, whose [NOUT] result stays on the source's
+    device (no host read; `newton_result` unpacks a host copy)."""
+    pts = source.points
     d1, d2 = config.gauss_params()
     pose0 = torch.from_numpy(_matrix_to_pose(init_pose)).to(pts.device, non_blocking=True)
-    out = _newton.ndt_newton(
+    return _newton.ndt_newton(
         pts, source.mask, source.get_weights(), ndt_map.index, ndt_map.packed, ndt_map.origin, pose0,
         dims=ndt_map.dims, resolution=ndt_map.resolution, d1=float(_f32(d1)), d2=float(_f32(d2)),
         stencil=config.stencil, weight_derivatives=config.weight_derivatives, max_iter=config.max_iter,
         trans_eps=config.trans_eps, step_size=config.step_size, score_rel_tol=config.score_rel_tol,
-    ).cpu().numpy()
+    )
+
+
+def newton_pose(out) -> torch.Tensor:
+    """The [4, 4] pose of an `ndt_newton` result on its device: the kernel's
+    final rotation and translation."""
+    T = torch.eye(4, dtype=torch.float32, device=out.device)
+    T[:3, :3] = out[_newton.ROTATION].reshape(3, 3)
+    T[:3, 3] = out[_newton.POSE][:3]
+    return T
+
+
+def newton_result(out: np.ndarray) -> NDTResult:
+    """The NDTResult of a host copy of an `ndt_newton` result."""
     score, grad, hess, _ = unpack_results(np.concatenate([out[_newton.SCORE:_newton.HESS.stop], [0.0]]))
     pose = np.eye(4, dtype=_f32)
     pose[:3, :3] = out[_newton.ROTATION].reshape(3, 3)

@@ -1,3 +1,4 @@
+from .back_end import BackEnd, BackEndConfig, KeyFrame
 from .front_end import (
     FrontEnd,
     FrontEndConfig,
@@ -5,11 +6,18 @@ from .front_end import (
     front_end_drive,
     init_front_end_drive,
 )
+from .loop_closing import LoopClosing, LoopClosingConfig, LoopPose
 
 __all__ = [
+    "BackEnd",
+    "BackEndConfig",
+    "KeyFrame",
     "FrontEnd",
     "FrontEndConfig",
     "FrontEndDriveState",
     "front_end_drive",
     "init_front_end_drive",
+    "LoopClosing",
+    "LoopClosingConfig",
+    "LoopPose",
 ]

@@ -89,7 +89,7 @@ def primed(sweeps):
         cloud(js.prev_less_sharp), np.asarray(js.prev_less_sharp_ring), cloud(js.prev_less_flat),
         np.asarray(js.prev_less_flat_ring), np.asarray(js.T_rel), np.asarray(js.T_world),
         np.asarray(js.T_map_odom), cloud(js.corner_map), cloud(js.surf_map), np.asarray(js.has_prev),
-        np.asarray(js.map_init),
+        np.asarray(js.map_init), device="cpu",
     )
     jf = ja.extract_features(jnp.asarray(frames[2][0]), jnp.asarray(frames[2][1]), FE_J)
     return js, ts, jf

@@ -53,11 +53,51 @@ def _assert_map_order(keys):
     return used
 
 
-@pytest.mark.parametrize("case", CAPS)
+def _loop_submap_maps():
+    """The loop-closure verification's target map, as each package builds
+    it: two keyframe scans in the map frame, voxel-downsampled as one
+    submap, then an NDT map without dense stats (port:
+    pipeline/loop_closing.py::_submap_ndt)."""
+    from lidar_slam_tpu.io import SyntheticWorld, make_hairpin_trajectory, simulate_scan
+    from lidar_slam_tpu.models.registration import NDTConfig as JNDTConfig
+    from lidar_slam_tpu.ops import voxel_downsample as j_voxel_downsample
+    from lidar_slam_tpu.pipeline import loop_closing as jlc
+
+    from lidar_slam_tpu_torch.models.registration import NDTConfig as TNDTConfig
+    from lidar_slam_tpu_torch.pipeline import loop_closing as tlc
+
+    world = SyntheticWorld.corridor(length=40.0, width=14.0, density=25.0, seed=9)
+    gt = make_hairpin_trajectory(n_out=4, n_turn=0, n_back=0, speed=1.0)
+    parts = []
+    for i in (1, 2):
+        pts, mask, _ = simulate_scan(world, gt[i], max_range=30.0, n_points=4096, seed=i)
+        parts.append(pts[mask] @ gt[i][:3, :3].T + gt[i][:3, 3])
+    sub = np.zeros((16384, 3), np.float32)
+    n = sum(len(p) for p in parts)
+    sub[:n] = np.concatenate(parts)
+    msk = np.arange(16384) < n
+    ndt = dict(resolution=1.0, grid_dims=(48, 48, 16), max_compact_voxels=2048)
+    cfg_j = jlc.LoopClosingConfig(ndt=JNDTConfig(**ndt), submap_capacity=4096)
+    cfg_t = tlc.LoopClosingConfig(ndt=TNDTConfig(**ndt), submap_capacity=4096)
+    submap = j_voxel_downsample(JCloud(points=jnp.asarray(sub), mask=jnp.asarray(msk)), cfg_j.map_filter_leaf,
+                                out_capacity=cfg_j.submap_capacity)
+    jm = jndt.build_ndt_map(submap, dataclasses.replace(cfg_j.ndt, dense_stats=False))
+    _, tm = tlc._submap_ndt(torch.as_tensor(sub), torch.as_tensor(msk), cfg_t)
+    return jm, tm
+
+
+@pytest.mark.parametrize("case", [*CAPS, "loop_submap"])
 def test_map_keys_ascend_unsigned(case):
     """The port's finalize_ndt_sums keys, the JAX package's from both of its
     constructors (finalize_ndt_sums and _pack_rows, the sharded build's)
-    and the converted map's: the same keys, in NDTMap's order."""
+    and the converted map's: the same keys, in NDTMap's order. The loop
+    closure's submap map (downsampled submap, no dense stats): the port's
+    keys in that order and equal to the JAX package's."""
+    if case == "loop_submap":
+        jm, tm = _loop_submap_maps()
+        assert 0 < _assert_map_order(tm.keys.numpy()) < 2048
+        np.testing.assert_array_equal(tm.keys.numpy(), np.asarray(jm.keys))
+        return
     jm, tm, cfg_j = _maps(CAPS[case])
     used = _assert_map_order(jm.keys)
     assert (used == CAPS[case]) == (case == "full")
@@ -89,7 +129,7 @@ def test_converter_rejects_keys_out_of_order(how):
     leaves["keys"] = leaves["keys"].copy()
     _break_order(how, leaves["keys"], int((leaves["keys"] >= 0).sum()))
     with pytest.raises(ValueError, match="unsigned ascending"):
-        convert.ndt_map_from_numpy(**leaves, dims=jm.dims, resolution=jm.resolution)
+        convert.ndt_map_from_numpy(**leaves, dims=jm.dims, resolution=jm.resolution, device="cpu")
 
 
 @pytest.mark.parametrize("case", CAPS)

@@ -53,14 +53,14 @@ def port_map_of(m) -> tndt.NDTMap:
     return convert.ndt_map_from_numpy(
         *(np.asarray(getattr(m, k)) for k in
           ("origin", "count", "mean", "icov", "staticvalue", "valid", "index", "packed", "keys")),
-        dims=m.dims, resolution=m.resolution,
+        dims=m.dims, resolution=m.resolution, device="cpu",
     )
 
 
 def port_sums_of(s) -> tndt.NDTMapSums:
     return convert.ndt_sums_from_numpy(
         *(np.asarray(getattr(s, k)) for k in ("origin", "count", "psum", "ppsum", "wsum")),
-        dims=s.dims, resolution=s.resolution,
+        dims=s.dims, resolution=s.resolution, device="cpu",
     )
 
 
