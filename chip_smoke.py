@@ -3,9 +3,11 @@
 
     python3 chip_smoke.py
 
-Drives the port's three paths on the card: tracking, A-LOAM and the mapping
-back half (loop closure, pose-graph optimization, a whole mapping session,
-phases 11-13). NDT scan-to-map tracking runs at
+Drives the port's paths on the card: tracking, A-LOAM, the mapping back
+half (loop closure, pose-graph optimization, a whole mapping session,
+phases 11-13), map-matching localization, the rebuilt local map with
+session restore, and the LM solver (phases 15-17). NDT scan-to-map tracking
+runs at
 the KITTI HDL-64 operating point of bench.py (raw scans padded to 131 072
 points, frames of <= 32 768 points, 1 m NDT voxels on a 256 x 256 x 64
 grid, 65 536 compact voxels, a 20-keyframe local map); the A-LOAM front end
@@ -81,15 +83,38 @@ grid) on bench.py's aloam_leg world and trajectory, at bench.py's density
      `--session-out FILE` both runs' odometry, keyframes, loop edges and
      optimized poses are saved for session_witness.py, which replays them
      through the JAX back end;
- 14. the kernels line: every kernel with its launches on its path, its
-     device time beside its plain version's and its bound (the larger of
-     the bytes it must move over 3.35 TB/s and its fp32 FLOPs over 67
-     TFLOP/s, counted from this run's inputs); K2's headline is DENSE's
-     odometry surf search, its other searches under "cases"; ndt_newton's
-     launches count the loop-closure and session paths too, and its `_loop`
-     fields are phase 11's.
+ 14. the kernels line (printed last, after phases 15-17): every kernel
+     with its launches on its paths, its device time beside its plain
+     version's and its bound (the larger of the bytes it must move over
+     3.35 TB/s and its fp32 FLOPs over 67 TFLOP/s, counted from this run's
+     inputs); K2's headline is DENSE's odometry surf search, its other
+     searches under "cases"; ndt_newton's launches count the loop-closure,
+     session, matching and rebuilt-map paths too, its `_loop` fields are
+     phase 11's and its `_matching` fields phase 15's; K1's count the LM
+     alignments of phase 17 beside the host-loop drives;
+ 15. map-matching localization at MatchingConfig() widths (a 224 x 224 x
+     48 radius27 fine map, a 112 x 112 x 24 coarse one, GPF ground removal)
+     on bench.py's matching_leg world at DENSE, against the world surface
+     voxel-filtered at the viewer's 0.5 m leaf: the crop against its
+     capacity; ndt_newton against its plain version at both matching
+     shapes on frames 0-2; Matching.update over 13 frames (2 ndt_newton
+     launches and 2 host syncs a frame, mean error < 0.3 m) and
+     matching_drive over the same frames (the guard, and each pose the
+     stepwise frame's from the same guess); the OnlyPosition yaw init
+     (height map and 270-yaw search) on the card against the CPU; the
+     refresh stall;
+ 16. FrontEnd(incremental_map=False) at phase 6's operating point and
+     frames (the 0.15 m guard, one ndt_newton launch an alignment, the
+     rebuild's ms a keyframe beside the incremental update's), and
+     FrontEnd.restore from an incremental run's keyframe window, then
+     updates: within RESTORE_TOL of the uninterrupted run;
+ 17. ndt_align(solver="lm") from the scan-match drive's guesses, direct7
+     and radius27: one K1 launch an LM evaluation, poses within LM_TOL of
+     the NDT optimum (ndt_newton run to a step under OPT_EPS), frame 0
+     against the LM over the plain derivative path;
+     ndt_fitness_score on the card against the CPU.
 
-The new phases print the card's name and power limit on each summary line.
+Phases 11-17 print the card's name and power limit on each summary line.
 
 Any failed check ends the run with a non-zero exit code. The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -139,6 +164,17 @@ SESSION_TOL = 5e-3
 # DRIFT_YAW rad added), which the loop must then take out: the optimized keyframes must end nearer
 # the truth than the drifted odometry.
 DRIFT_YAW, DRIFT_SCALE = 5e-4, 5e-3
+# Phase 15 (bench.py matching_leg): 16 frames, 3 warm, the rest timed; the viewer's global-map leaf
+MATCH_FRAMES, MATCH_WARM, GLOBAL_MAP_LEAF = 16, 3, 0.5
+MATCH_GUARD = 0.3  # bench.py matching_leg's mean pose-error guard, m
+DRIVE_TOL = 1e-4  # matching_drive against _match_step from the drive's own guesses, m and rad
+YAW_TOL = 1e-4  # the yaw search's 270 scores, card against CPU, relative to the best
+RESTORE_TOL = 1e-3  # FrontEnd.restore, then updates, against the uninterrupted run, m
+# ndt_align(solver="lm") against the NDT optimum from the same guesses (ndt_newton run to a step under
+# OPT_EPS), m. Both solvers stop once a step is under trans_eps (1 cm), each a few millimetres short
+# of the optimum in its own direction, so they are held to the optimum, not to each other
+LM_TOL, OPT_EPS = 5e-3, 1e-5
+FITNESS_RTOL = 1e-5  # ndt_fitness_score, card against CPU, relative
 # One H100 SXM (the data sheet): HBM bytes/s and fp32 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
@@ -611,8 +647,9 @@ def tracking_config():
 
 def front_end(dev):
     """Phase 6, second part (bench.py:315-402): FrontEnd.update and
-    front_end_drive. Returns the number of alignments they ran: two (coarse
-    and fine) a frame, except on a first frame, which has no map yet."""
+    front_end_drive. Returns the number of alignments they ran (two, coarse
+    and fine, a frame, except on a first frame, which has no map yet), the
+    truth and the preloaded frames (phase 16 drives them again)."""
     import torch
 
     from lidar_slam_tpu_torch.io import SyntheticWorld, make_trajectory, simulate_scan
@@ -665,7 +702,7 @@ def front_end(dev):
     check(float(unres.max()) == 0.0, "front_end_drive: unresolved > 0")
     check(np.mean(errs_d) < 0.15, f"front-end drive error guard ({np.mean(errs_d):.4f} m)")
     # 18 updates, a 3-frame warm-up drive and two 15-frame drives, each from an empty map
-    return 2 * ((len(scans) - 1) + (3 - 1) + 2 * (len(pts_seq) - 1))
+    return 2 * ((len(scans) - 1) + (3 - 1) + 2 * (len(pts_seq) - 1)), traj, loaded
 
 
 def build_kernels():
@@ -1453,6 +1490,390 @@ def mapping_session(dev, root, gt, scans, smi, session_out=None):
             "back_ms_per_keyframe": back_s * 1e3 / n_kf}
 
 
+def matching_workload(dev):
+    """Phase 15's inputs: bench.py's matching_leg world and trajectory
+    (corridor 120 x 18 m, seed 5; 16 frames at 1 m a frame) at DENSE, each
+    frame a simulate_spinning_scan sweep of 64 x 2 048 bins (~104k returns
+    in RAW_CAP rows), and the global map as the CLI loads it: the world
+    surface voxel-filtered at the viewer's global_map_leaf. Returns (truth,
+    raw frames, global map points (host), the world's point count)."""
+    from lidar_slam_tpu_torch.io import SyntheticWorld, make_trajectory, simulate_spinning_scan
+    from lidar_slam_tpu_torch.ops import PointCloud, voxel_downsample
+
+    world = SyntheticWorld.corridor(length=120.0, width=18.0, density=DENSE, seed=5)
+    traj = make_trajectory(MATCH_FRAMES, speed=1.0)
+    frames = [simulate_spinning_scan(world, traj[i], t=i * 0.1, n_scans=64, n_azimuth=2048, seed=700 + i)[:2]
+              for i in range(MATCH_FRAMES)]
+    gm = voxel_downsample(PointCloud.from_points(world.points, device=dev), GLOBAL_MAP_LEAF)
+    return traj, frames, gm.points[gm.mask].cpu().numpy(), len(world.points)
+
+
+def matching_kernel_parity(m, frame, predict, res):
+    """Phase 15, one frame: ndt_newton against its plain version at the
+    matching shapes (the coarse 112 x 112 x 24 map from `predict`, then the
+    fine 224 x 224 x 48 one from the kernel's coarse pose), with
+    check_sums_at; the first call also times the fine alignment (kernel,
+    plain, bound from the plain run's evaluations). Appends (gap,
+    iterations, plain iterations) per level to `res` and returns the
+    kernel's fine pose [4, 4] (host)."""
+    import torch
+
+    from lidar_slam_tpu_torch.models.registration.ndt import _matrix_to_pose, newton_pose
+    from lidar_slam_tpu_torch.ops.cuda import ndt_newton as N
+
+    guess, calls = predict, {}
+    for level, ndt_map, cfg in (("coarse", m.coarse_ndt_map, m._coarse_cfg()), ("fine", m.ndt_map, m.cfg.ndt)):
+        kw = newton_kw(ndt_map, cfg)
+        pose0 = torch.as_tensor(_matrix_to_pose(guess), device=frame.points.device)
+        args = (frame.points, frame.mask, frame.get_weights(), ndt_map.index, ndt_map.packed, ndt_map.origin, pose0)
+        calls[level] = (args, kw)
+        k, p, trace, _, step = newton_case(f"matching newton {level}", args, kw, cfg.stencil)
+        gap = pose_gap(newton_pose(torch.as_tensor(k)).numpy(), newton_pose(torch.as_tensor(p)).numpy())
+        res[level].append((gap, int(k[N.ITERATIONS]), int(p[N.ITERATIONS])))
+        res["max_abs_err"] = max(res["max_abs_err"], float(np.abs(k[N.POSE] - p[N.POSE]).max()))
+        log(f"[matching newton {level}] kernel {int(k[N.ITERATIONS])} iterations, plain {int(p[N.ITERATIONS])}; "
+            f"kernel - plain {gap[0]:.2e} m, {gap[1]:.2e} rad; gradient difference's step {step:.2e}")
+        guess = newton_pose(torch.as_tensor(k)).numpy()
+        if level == "fine" and "ms" not in res:
+            res["iterations"] = int(k[N.ITERATIONS])
+            res["ms"] = device_ms(lambda: N.ndt_newton(*args, **kw), reps=20)
+            res["plain_ms"] = device_ms(lambda: N.ndt_newton_plain(*args, **kw), reps=3)
+            n_bytes, flops = ndt_work(frame, ndt_map, trace, cfg)
+            res["bound_ms"], res["bound_by"] = bound(n_bytes, flops)
+            c_args, c_kw = calls["coarse"]
+            res["coarse_ms"] = device_ms(lambda: N.ndt_newton(*c_args, **c_kw), reps=20)
+            log(f"[matching newton] {int(frame.mask.sum())} frame points x {int((ndt_map.keys >= 0).sum())} voxels "
+                f"({cfg.stencil}, {'x'.join(map(str, ndt_map.dims))} grid): ndt_newton {res['ms']:.4f} ms an "
+                f"alignment of {res['iterations']} iterations, plain {res['plain_ms']:.2f} ms (device, median); "
+                f"bound {res['bound_ms']:.5f} ms ({n_bytes} B, {flops} FLOP in {len(trace)} evaluations: "
+                f"{res['bound_by']}); coarse alignment {res['coarse_ms']:.4f} ms")
+    return guess
+
+
+def matching_phase(dev, smi):
+    """Phase 15: Matching at MatchingConfig() widths on the matching_leg
+    world at DENSE. The crop against local_map_capacity; ndt_newton against
+    its plain version at the matching shapes on frames 0-2 (each stepwise
+    update then equal to the kernel's pose); the main path: FullPose
+    Matching.update over frames 3-15 after the three warm frames (2
+    ndt_newton launches and 2 host syncs a frame, K1 none; mean error
+    < MATCH_GUARD) and matching_drive over the same frames (the same guard;
+    each pose within DRIVE_TOL of _match_step from the drive's own guess);
+    _height_map and _yaw_search (frame 3, the OnlyPosition init) on the card
+    against the same calls on CPU tensors (the same best yaw, scores within
+    YAW_TOL), an OnlyPosition Matching through set_gnss_pose; the refresh
+    stall (reset_local_map). Returns the kernels-line fields."""
+    import torch
+
+    from lidar_slam_tpu_torch.ops.cuda import ndt_fused
+    from lidar_slam_tpu_torch.ops.cuda import ndt_newton as N
+    from lidar_slam_tpu_torch.pipeline import Matching, MatchingConfig, matching_drive
+    from lidar_slam_tpu_torch.pipeline import matching as M
+
+    t0 = time.perf_counter()
+    traj, frames, gmap, n_world = matching_workload(dev)
+    cfg = MatchingConfig()
+    m = Matching(cfg, gmap, device=dev)
+    m.set_gnss_pose(traj[0])
+    loaded = [m.preload(*f) for f in frames]
+    torch.cuda.synchronize()
+    n_ret = [int(f[1].sum()) for f in frames]
+    used = [int((x.keys >= 0).sum()) for x in (m.ndt_map, m.coarse_ndt_map)]
+    log(f"[matching] workload {time.perf_counter() - t0:.1f} s: {n_world} world points, a global map of {len(gmap)} "
+        f"points ({GLOBAL_MAP_LEAF} m leaf); frames of {min(n_ret)}-{max(n_ret)} returns in {cfg.raw_capacity} rows; "
+        f"crop {m.crop_points} points (capacity {cfg.local_map_capacity}), local map "
+        f"{int(m._local_cloud.mask.sum())} points ({cfg.local_map_leaf} m), compact voxels fine {used[0]} / coarse "
+        f"{used[1]} (of {cfg.ndt.max_compact_voxels}) ({smi})")
+    check(m.crop_points <= cfg.local_map_capacity,
+          f"matching: the crop holds {m.crop_points} points, over local_map_capacity {cfg.local_map_capacity}")
+    check(max(used) < cfg.ndt.max_compact_voxels, f"matching: compact voxels {used} fill the table")
+
+    res = {"max_abs_err": 0.0, "coarse": [], "fine": []}
+    warm_launches = 0
+    for i in range(MATCH_WARM):
+        frame = M._frame(*loaded[i], cfg)
+        kernel_pose = matching_kernel_parity(m, frame, m.current_pose @ m.predict_step, res)
+        before = N.launches
+        pose = m.update(None, preloaded=loaded[i])
+        warm_launches += N.launches - before
+        check(np.array_equal(pose, kernel_pose.astype(np.float32)),
+              f"matching frame {i}: Matching.update's pose is not the kernel's")
+    for level in ("coarse", "fine"):
+        gaps, iters, plain_iters = zip(*res[level])
+        check_poses(f"matching newton {level}", "radius27", gaps, iters, plain_iters, cfg.ndt.trans_eps)
+
+    reset_launches()
+    with counting_syncs() as syncs:
+        t0 = time.perf_counter()
+        poses = [m.update(None, preloaded=loaded[i]) for i in range(MATCH_WARM, MATCH_FRAMES)]
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) * 1e3 / len(poses)
+    n = len(poses)
+    step_launches = N.launches
+    errs = np.linalg.norm(np.stack(poses)[:, :3, 3] - traj[MATCH_WARM:, :3, 3], axis=1)
+    log(f"[matching] Matching.update {dt:.2f} ms/frame over {n} frames (wall, sync counting on), pose error mean "
+        f"{errs.mean():.4f} max {errs.max():.4f} m; {N.launches} ndt_newton and {ndt_fused.launches} K1 launches, "
+        f"{syncs[0]} host syncs ({smi})")
+    check(N.launches == 2 * n and ndt_fused.launches == 0,
+          f"matching: {N.launches} ndt_newton and {ndt_fused.launches} K1 launches in {n} frames, expected 2 a frame")
+    check(syncs[0] == 2 * n, f"matching: {syncs[0]} host syncs in {n} frames, expected 2 a frame")
+    check(errs.mean() < MATCH_GUARD, f"matching: pose error guard ({errs.mean():.4f} m)")
+
+    pts_seq = torch.stack([loaded[i][0] for i in range(MATCH_WARM, MATCH_FRAMES)])
+    msk_seq = torch.stack([loaded[i][1] for i in range(MATCH_WARM, MATCH_FRAMES)])
+    ccfg = m._coarse_cfg()
+    reset_launches()
+    best = float("inf")
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dposes, dunres = matching_drive(m.ndt_map, m.coarse_ndt_map, pts_seq, msk_seq, traj[MATCH_WARM], cfg, ccfg)
+        best = min(best, time.perf_counter() - t0)
+    drive_launches = N.launches
+    check(drive_launches == 4 * n and ndt_fused.launches == 0,
+          f"matching_drive: {drive_launches} ndt_newton launches in two drives of {n} frames")
+    dposes = dposes.numpy()
+    errs_d = np.linalg.norm(dposes[:, :3, 3] - traj[MATCH_WARM:, :3, 3], axis=1)
+    cur, step, gap = torch.as_tensor(traj[MATCH_WARM]), torch.eye(4), 0.0
+    for k in range(n):
+        _, _, pose, _ = M._match_step(m.ndt_map, m.coarse_ndt_map, pts_seq[k], msk_seq[k], cur @ step, cfg, ccfg)
+        gap = max(gap, *pose_gap(pose.numpy(), dposes[k]))
+        step, cur = torch.linalg.solve(cur, torch.as_tensor(dposes[k])), torch.as_tensor(dposes[k])
+    log(f"[matching] matching_drive {best * 1e3 / n:.2f} ms/frame ({n / best:.1f} fps), pose error mean "
+        f"{errs_d.mean():.4f} m, unresolved max {float(dunres.max())}; |drive - stepwise| from its guesses "
+        f"{gap:.2e} ({smi})")
+    check(float(dunres.max()) == 0.0, "matching_drive: unresolved > 0")
+    check(errs_d.mean() < MATCH_GUARD, f"matching_drive: pose error guard ({errs_d.mean():.4f} m)")
+    check(gap <= DRIVE_TOL, f"matching_drive: {gap} from the stepwise frames from the same guesses")
+
+    # the OnlyPosition init on frame 3: the height map and all 270 yaws on the card and on the CPU
+    pos = np.asarray(traj[MATCH_WARM][:3, 3], np.float32)
+    scan = M._frame(*loaded[MATCH_WARM], cfg)
+    cloud = m._local_cloud
+    dim, cell = cfg.height_map_dim, cfg.cell_size
+    origin = np.asarray(pos[:2] - dim * cell / 2.0, np.float32)
+    out = {}
+    for where in (dev, "cpu"):
+        c_pts, c_msk = cloud.points.to(where), cloud.mask.to(where)
+        hm = M._height_map(c_pts, c_msk, torch.as_tensor(origin, device=where), dim, cell)
+        out[where] = (hm, *M._yaw_search(scan.points.to(where), scan.mask.to(where), torch.as_tensor(pos, device=where),
+                                         *hm, torch.as_tensor(origin, device=where), dim, cell, cfg.yaw_samples))
+    (hm_g, yaw_g, sc_g), (hm_c, yaw_c, sc_c) = out[dev], out["cpu"]
+    sc_g, sc_c = sc_g.cpu().numpy(), sc_c.numpy()
+    rel = float(np.max(np.abs(sc_g - sc_c)) / np.max(np.abs(sc_c)))
+    hm_err = max(float((a.cpu().double() - b.double()).abs().max()) for a, b in zip(hm_g[:2], hm_c[:2]))
+    yaw_err = abs((float(yaw_g) + np.pi) % (2 * np.pi) - np.pi)  # the truth's yaw is 0
+    order = np.argsort(-sc_g)
+    res["height_ms"] = device_ms(lambda: M._height_map(cloud.points, cloud.mask, torch.as_tensor(origin, device=dev),
+                                                       dim, cell), reps=10)
+    res["yaw_ms"] = device_ms(lambda: M._yaw_search(scan.points, scan.mask, torch.as_tensor(pos, device=dev), *hm_g,
+                                                    torch.as_tensor(origin, device=dev), dim, cell, cfg.yaw_samples),
+                              reps=10)
+    log(f"[matching yaw] {int(scan.mask.sum())} scan points x {cfg.yaw_samples} yaws on a {dim} x {dim} height map "
+        f"({int(hm_g[2].sum())} cells occupied): best yaw {float(yaw_g):.4f} rad (CPU {float(yaw_c):.4f}), "
+        f"{yaw_err:.4f} rad from the truth; best scores {sc_g[order[0]]:.2f}, next {sc_g[order[1]]:.2f} at "
+        f"{float(order[1]) * 2 * np.pi / cfg.yaw_samples:.4f} rad; scores card vs CPU {rel:.2e} relative, height map "
+        f"{hm_err:.2e}; height map {res['height_ms']:.3f} ms, yaw search {res['yaw_ms']:.3f} ms (device, median) "
+        f"({smi})")
+    check(int(np.argmax(sc_g)) == int(np.argmax(sc_c)) and float(yaw_g) == float(yaw_c),
+          "the yaw search: the card's best yaw is not the CPU's")
+    check(rel <= YAW_TOL, f"the yaw search: scores {rel} apart (relative)")
+    check(torch.equal(hm_g[2].cpu(), hm_c[2]), "the height map: occupied cells differ")
+
+    init = Matching(dataclasses.replace(cfg, init_mode="only_position"), gmap, device=dev)
+    check(init.update(None, preloaded=loaded[MATCH_WARM]) is None, "OnlyPosition: the first update returned a pose")
+    t0 = time.perf_counter()
+    agreed = [init.set_gnss_pose(pos), init.set_gnss_pose(pos)]
+    res["init_ms"] = (time.perf_counter() - t0) * 1e3 / 2
+    init_yaw = float(np.arctan2(init.current_pose[1, 0], init.current_pose[0, 0])) if init.has_inited() else None
+    res["refresh_ms"] = host_ms(lambda: m.reset_local_map(pos), reps=3)
+    log(f"[matching init] OnlyPosition set_gnss_pose x 2: {agreed}, yaw {init_yaw}; {res['init_ms']:.1f} ms a call "
+        f"(a crop and map rebuild, the height map, the yaw search); reset_local_map {res['refresh_ms']:.1f} ms "
+        f"(wall, median) ({smi})")
+    check(agreed == [False, True], f"OnlyPosition: set_gnss_pose gave {agreed}, expected [False, True]")
+    res.update(launches=warm_launches + step_launches + drive_launches, ms_per_frame=dt,
+               drive_ms_per_frame=best * 1e3 / n, error=float(errs.mean()), drive_error=float(errs_d.mean()))
+    return res
+
+
+def rebuilt_front_end(dev, traj, loaded, smi):
+    """Phase 16 at phase 6's NDT operating point and frames:
+    FrontEnd(incremental_map=False) over the 18 frames (the 0.15 m guard,
+    one ndt_newton launch an alignment, K1 none), the rebuild's ms a
+    keyframe beside the incremental update's (both host wall, synchronised,
+    on the run's last keyframe window); then FrontEnd.restore from the last
+    local_frame_num keyframes of an incremental run stopped after a frame
+    that is not a keyframe (so nothing is pending), and update over the
+    remaining frames: poses within RESTORE_TOL of the uninterrupted run's.
+    The rebuilt-map run is repeated with the JAX package's coarse-map
+    corner, its error logged. Returns the kernels-line fields."""
+    import torch
+
+    from lidar_slam_tpu_torch.ops.cuda import ndt_fused
+    from lidar_slam_tpu_torch.ops.cuda import ndt_newton as N
+    from lidar_slam_tpu_torch.pipeline import FrontEnd
+    from lidar_slam_tpu_torch.pipeline import front_end as F
+    from lidar_slam_tpu_torch.pipeline.front_end import _build_local_map, _incremental_map_update, coarse_tracking_cfg
+
+    cfg = dataclasses.replace(tracking_config(), incremental_map=False)
+    fe = FrontEnd(cfg, device=dev)
+    fe.set_init_pose(traj[0])
+    reset_launches()
+    for i in range(6):
+        fe.update(None, preloaded=loaded[i])
+    torch.cuda.synchronize()
+    n_kf0, errs = fe.n_keyframes, []
+    t0 = time.perf_counter()
+    for i in range(6, len(loaded)):
+        pose, _ = fe.update(None, preloaded=loaded[i])
+        errs.append(np.linalg.norm(pose[:3, 3] - traj[i][:3, 3]))
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) * 1e3 / (len(loaded) - 6)
+    launches, n_align = N.launches, 2 * (len(loaded) - 1)
+    k = cfg.local_frame_num
+    last = (fe.kf_cursor - 1) % k
+    res = {"launches": launches, "ms_per_frame": dt, "error": float(np.mean(errs))}
+    res["rebuild_ms"] = host_ms(lambda: _build_local_map(
+        fe.kf_points, fe.kf_masks, fe.kf_weights, fe.kf_poses, fe.kf_valid, min(fe.n_keyframes, k),
+        fe.kf_poses[last][:3, 3], cfg), reps=5)
+    log(f"[rebuilt map] FrontEnd(incremental_map=False).update {dt:.2f} ms/frame, {fe.n_keyframes - n_kf0} keyframes "
+        f"in {len(loaded) - 6} frames ({fe.n_keyframes} total), pose error mean {res['error']:.4f} m; "
+        f"{launches} ndt_newton and {ndt_fused.launches} K1 launches in {n_align} alignments; the rebuild "
+        f"{res['rebuild_ms']:.2f} ms a keyframe ({int(fe.local_map_cloud.mask.sum())} local-map points) ({smi})")
+    check(res["error"] < 0.15, f"rebuilt-map front end: error guard ({res['error']:.4f} m)")
+    check(launches == n_align and ndt_fused.launches == 0,
+          f"rebuilt-map front end: {launches} ndt_newton launches in {n_align} alignments")
+
+    # the same run with the JAX package's coarse corner (the fine corner itself, off the coarse
+    # lattice where odd): logged, the measurement behind front_end.coarse_origin
+    snap = F.coarse_origin
+    F.coarse_origin = lambda origin, resolution: np.asarray(origin, np.float32)
+    try:
+        ref = FrontEnd(cfg, device=dev)
+        ref.set_init_pose(traj[0])
+        ref_errs = [np.linalg.norm(ref.update(None, preloaded=loaded[i])[0][:3, 3] - traj[i][:3, 3])
+                    for i in range(len(loaded))]
+    finally:
+        F.coarse_origin = snap
+    res["reference_corner_error"] = float(np.mean(ref_errs[6:]))
+    log(f"[rebuilt map] with the JAX package's coarse corner: pose error mean {res['reference_corner_error']:.4f} "
+        f"m over frames 6-{len(loaded) - 1}, per frame m {np.array2string(np.asarray(ref_errs), precision=3)}")
+
+    # the uninterrupted incremental run, stopped after a frame that made no keyframe
+    inc = FrontEnd(tracking_config(), device=dev)
+    inc.set_init_pose(traj[0])
+    stop = None
+    for i in range(len(loaded)):
+        _, is_kf = inc.update(None, preloaded=loaded[i])
+        if i >= 9 and not is_kf:
+            stop = i
+            break
+    check(stop is not None and inc._pending_update is None, "restore: no frame to stop the run after")
+    recs = []
+    for j in range(max(0, inc.kf_cursor - k), inc.kf_cursor):
+        s, msk = j % k, inc.kf_masks[j % k]
+        recs.append({"points": inc.kf_points[s][msk].cpu().numpy(), "weights": inc.kf_weights[s][msk].cpu().numpy(),
+                     "pose": inc.kf_poses[s].copy()})
+    fine_cfg = dataclasses.replace(inc.cfg.ndt, dense_stats=False)
+    s = (inc.kf_cursor - 1) % k
+    origin = FrontEnd._lattice_origin(inc.kf_poses[s][:3, 3], fine_cfg, snap_mult=2.0)
+    res["incremental_ms"] = host_ms(lambda: _incremental_map_update(
+        inc.fine_sums, inc.kf_world[s], inc.kf_masks[s], inc.kf_weights[s], inc.kf_points[s], inc.kf_masks[s],
+        inc.kf_weights[s], inc.kf_poses[s], origin, fine_cfg, coarse_tracking_cfg(inc.cfg.ndt)), reps=5)
+    restored = FrontEnd(tracking_config(), device=dev)
+    t0 = time.perf_counter()
+    restored.restore(recs, total_keyframes=inc.kf_cursor, last_pose=inc.last_pose, predict_pose=inc.predict_pose)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    gaps, flags = [], []
+    for i in range(stop + 1, len(loaded)):
+        a, ka = inc.update(None, preloaded=loaded[i])
+        b, kb = restored.update(None, preloaded=loaded[i])
+        gaps.append(pose_gap(a, b))
+        flags.append(ka == kb)
+    gaps = np.asarray(gaps)
+    log(f"[restore] from {len(recs)} keyframes (run stopped after frame {stop}, {inc.kf_cursor} keyframes): restore "
+        f"{restore_ms:.1f} ms, then {len(gaps)} updates: |restored - uninterrupted| max {gaps[:, 0].max():.2e} m, "
+        f"{gaps[:, 1].max():.2e} rad, keyframe flags equal {all(flags)}; incremental map update "
+        f"{res['incremental_ms']:.2f} ms a keyframe against the rebuild's {res['rebuild_ms']:.2f} ({smi})")
+    check(all(flags) and gaps[:, 0].max() <= RESTORE_TOL,
+          f"restore: {gaps[:, 0].max()} m from the uninterrupted run (flags equal: {all(flags)})")
+    res["restore_gap"] = float(gaps[:, 0].max())
+    return res
+
+
+def lm_phase(workload, cfg, drives, smi):
+    """Phase 17: ndt_align(solver="lm") from the scan-match drive's guesses
+    (its motion-model predictions of its own poses), direct7 and radius27:
+    one K1 launch an LM evaluation and no ndt_newton launch; poses within
+    LM_TOL of ndt_newton's run to a step under OPT_EPS (the NDT optimum),
+    their gap to ndt_newton at the configuration's trans_eps logged. The
+    first frame's LM
+    against the same LM over the plain derivative path on the card
+    (gather="two_level"), within POSE_TOL; ndt_fitness_score at the LM's
+    pose on the card against the same call on CPU tensors (FITNESS_RTOL).
+    Returns the LM's K1 launches."""
+    import torch
+
+    from lidar_slam_tpu_torch.models.registration import build_ndt_map, ndt_align, ndt_fitness_score
+    from lidar_slam_tpu_torch.ops.cuda import ndt_fused, ndt_newton
+    from lidar_slam_tpu_torch.pipeline.front_end import _preprocess
+
+    map_cloud, all_pts, all_msk, gt, guess0 = workload
+    total = 0
+    for stencil, poses in drives.items():
+        scfg = dataclasses.replace(cfg, stencil=stencil)
+        lm_cfg = dataclasses.replace(scfg, solver="lm")
+        ndt_map = build_ndt_map(map_cloud, scfg)
+        frames = [_preprocess(all_pts[i], all_msk[i], FRAME_CAP, 0.5) for i in range(N_FRAMES)]
+        guesses, last, predict = [], torch.as_tensor(guess0), torch.as_tensor(guess0)
+        for p in poses:
+            guesses.append(predict)
+            p = torch.as_tensor(p)
+            step = torch.linalg.solve(last, p)
+            last, predict = p, p @ step
+        newton = [ndt_align(ndt_map, f, g, scfg) for f, g in zip(frames, guesses)]
+        opt_cfg = dataclasses.replace(scfg, trans_eps=OPT_EPS, max_iter=100)
+        optimum = [ndt_align(ndt_map, f, g, opt_cfg) for f, g in zip(frames, guesses)]
+        reset_launches()
+        t0 = time.perf_counter()
+        lm = [ndt_align(ndt_map, f, g, lm_cfg) for f, g in zip(frames, guesses)]
+        dt = (time.perf_counter() - t0) * 1e3 / N_FRAMES
+        evals = sum(r.iterations + 1 for r in lm)
+        check(ndt_fused.launches == evals and ndt_newton.launches == 0,
+              f"LM {stencil}: {ndt_fused.launches} K1 and {ndt_newton.launches} ndt_newton launches in {evals} "
+              f"evaluations")
+        total += ndt_fused.launches
+        gaps = np.asarray([pose_gap(a.pose.numpy(), b.pose.numpy()) for a, b in zip(lm, optimum)])
+        gaps_n = np.asarray([pose_gap(a.pose.numpy(), b.pose.numpy()) for a, b in zip(newton, optimum)])
+        err = np.linalg.norm(np.stack([r.pose.numpy() for r in lm])[:, :3, 3] - gt[:, :3, 3], axis=1)
+        plain = ndt_align(ndt_map, frames[0], guesses[0], dataclasses.replace(lm_cfg, gather="two_level"))
+        first = pose_gap(lm[0].pose.numpy(), plain.pose.numpy())
+        log(f"[lm {stencil}] {N_FRAMES} alignments: {dt:.2f} ms each (wall), iterations {[r.iterations for r in lm]}, "
+            f"converged {sum(r.converged for r in lm)}; {ndt_fused.launches} K1 launches in {evals} evaluations; "
+            f"from the optimum: LM max {gaps[:, 0].max():.2e} m, {gaps[:, 1].max():.2e} rad, ndt_newton at "
+            f"trans_eps {cfg.trans_eps} max {gaps_n[:, 0].max():.2e} m (optimum iterations "
+            f"{[r.iterations for r in optimum]}); error mean {err.mean():.4f} m; frame 0 against the plain path's "
+            f"LM ({plain.iterations} iterations): {first[0]:.2e} m, {first[1]:.2e} rad ({smi})")
+        log(f"[lm {stencil}] per-frame |LM - optimum| m {np.array2string(gaps[:, 0], precision=5)}; "
+            f"|ndt_newton - optimum| m {np.array2string(gaps_n[:, 0], precision=5)}")
+        check(gaps[:, 0].max() <= LM_TOL, f"LM {stencil}: {gaps[:, 0].max()} m from the NDT optimum")
+        check(max(first) <= POSE_TOL, f"LM {stencil} frame 0: {first} from the plain path's LM")
+        if stencil == "direct7":
+            T = lm[0].pose.to(frames[0].points.device)
+            on_card = float(ndt_fitness_score(ndt_map, frames[0], T, scfg))
+            cpu_map = dataclasses.replace(ndt_map, **{f: getattr(ndt_map, f).cpu() for f in
+                                                      ("count", "mean", "icov", "staticvalue", "valid", "index",
+                                                       "packed", "keys")})
+            cpu_frame = dataclasses.replace(frames[0], points=frames[0].points.cpu(), mask=frames[0].mask.cpu())
+            on_cpu = float(ndt_fitness_score(cpu_map, cpu_frame, T.cpu(), scfg))
+            fit_ms = device_ms(lambda: ndt_fitness_score(ndt_map, frames[0], T, scfg), reps=10)
+            log(f"[lm fitness] ndt_fitness_score at frame 0's LM pose: card {on_card:.7f}, CPU {on_cpu:.7f} "
+                f"({abs(on_card - on_cpu) / on_cpu:.2e} relative); {fit_ms:.3f} ms (device, median) ({smi})")
+            check(abs(on_card - on_cpu) <= FITNESS_RTOL * abs(on_cpu), f"ndt_fitness_score: card {on_card}, CPU {on_cpu}")
+    return total
+
+
 def reset_launches():
     from lidar_slam_tpu_torch.ops.cuda import knn_fused, ndt_fused, ndt_gather, ndt_newton
 
@@ -1522,12 +1943,11 @@ def main(argv=None) -> int:
     # read just after
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    for s in stencils:
-        scan_match_drive(workload, cfg, s)
+    drives = {s: scan_match_drive(workload, cfg, s)[0] for s in stencils}
     launches_drive, k1_drive = ndt_newton.launches, ndt_fused.launches
     n_drive = len(stencils) * 2 * N_FRAMES  # a warm-up and a timed run of the drive per stencil
     reset_launches()
-    n_front = front_end(dev)
+    n_front, traj_front, loaded_front = front_end(dev)
     launches_front, k1_front = ndt_newton.launches, ndt_fused.launches
     log(f"[launches] ndt_newton: {launches_drive} in {n_drive} alignments of the scan-match drives, "
         f"{launches_front} in {n_front} alignments of the front end; K1: {k1_drive} and {k1_front}")
@@ -1567,6 +1987,15 @@ def main(argv=None) -> int:
     session = mapping_session(dev, os.path.join(work, "session"), gt_s, scans_s, smi, args.session_out)
     shutil.rmtree(work, ignore_errors=True)
 
+    # this slice's paths: map-matching localization, the rebuilt local map
+    # and session restore, the LM solver; counts reset inside each
+    reset_launches()
+    matching = matching_phase(dev, smi)
+    rebuilt = rebuilt_front_end(dev, traj_front, loaded_front, smi)
+    launches_lm = lm_phase(workload, cfg, drives, smi)
+    log(f"[launches] ndt_newton: {matching['launches']} in the matching paths, {rebuilt['launches']} in the "
+        f"rebuilt-map front end; K1: {launches_lm} in the LM alignments ({smi})")
+
     d7, r27 = parity["direct7"], parity["radius27"]
     n7, n27 = newton["direct7"], newton["radius27"]
     k2 = next(c for c in knn if c["density"] == f"{DENSE:g}" and c["case"] == "odometry")
@@ -1579,8 +2008,8 @@ def main(argv=None) -> int:
             "replaces": "lidar_slam_tpu/ops/pallas/ndt_fused.py:297",
             "replaces_loop": "lidar_slam_tpu/models/registration/ndt.py:1407",
             "launches": launches_drive + launches_front + loop["launches"] + session["launches"]
-            + session["launches_drift"],
-            "max_abs_err": max(n7["max_abs_err"], n27["max_abs_err"], loop["max_abs_err"]),
+            + session["launches_drift"] + matching["launches"] + rebuilt["launches"],
+            "max_abs_err": max(n7["max_abs_err"], n27["max_abs_err"], loop["max_abs_err"], matching["max_abs_err"]),
             "ms": n7["ms"],
             "plain_ms": n7["plain_ms"],
             "bound_ms": n7["bound_ms"],
@@ -1604,13 +2033,21 @@ def main(argv=None) -> int:
             "bound_ms_loop": loop["bound_ms"],
             "bound_by_loop": loop["bound_by"],
             "iterations_loop": loop["iterations"],
+            "launches_matching": matching["launches"],
+            "ms_matching": matching["ms"],
+            "plain_ms_matching": matching["plain_ms"],
+            "bound_ms_matching": matching["bound_ms"],
+            "bound_by_matching": matching["bound_by"],
+            "iterations_matching": matching["iterations"],
+            "ms_matching_coarse": matching["coarse_ms"],
+            "launches_front_end_rebuild": rebuilt["launches"],
         },
         {
             "name": "ndt_reduce_fused",
             "route": "cuda",
             "source": "lidar_slam_tpu_torch/csrc/ndt_fused.cu",
             "replaces": "lidar_slam_tpu/ops/pallas/ndt_fused.py:297",
-            "launches": launches_k1,
+            "launches": launches_k1 + launches_lm,
             "max_abs_err": max(d7[0], r27[0]),
             "ms": d7[1],
             "plain_ms": d7[2],
@@ -1620,6 +2057,8 @@ def main(argv=None) -> int:
             "ms_radius27": r27[1],
             "plain_ms_radius27": r27[2],
             "bound_ms_radius27": r27[3],
+            "launches_host_loop_drive": launches_k1,
+            "launches_lm": launches_lm,
         },
         {
             "name": "window_knn",

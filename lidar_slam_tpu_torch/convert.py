@@ -29,10 +29,16 @@ def _t(a, dtype, device):
 
 
 def config_from_fields(cls, fields: dict):
-    """The port's config class `cls` (NDTConfig, FeatureExtractionConfig,
-    AloamOdometryConfig, AloamMappingConfig) from the JAX config's fields
-    (`dataclasses.asdict`)."""
+    """The port's config class `cls` (NDTConfig, FrontEndConfig,
+    MatchingConfig, FeatureExtractionConfig, AloamOdometryConfig,
+    AloamMappingConfig, ...) from the JAX config's fields
+    (`dataclasses.asdict`). A field whose default is itself a config (the
+    `ndt` of FrontEndConfig and MatchingConfig) arrives as a dict and is
+    built the same way."""
     fields = dict(fields)
+    for f in dataclasses.fields(cls):
+        if isinstance(fields.get(f.name), dict) and dataclasses.is_dataclass(f.default):
+            fields[f.name] = config_from_fields(type(f.default), fields[f.name])
     if "grid_dims" in fields:
         fields["grid_dims"] = tuple(int(d) for d in fields["grid_dims"])
     return cls(**fields)

@@ -11,6 +11,7 @@ from .ndt import (
     finalize_ndt_sums,
     ndt_derivatives,
     ndt_align,
+    ndt_fitness_score,
 )
 from .fitness import point_nn_fitness_score
 
@@ -27,5 +28,6 @@ __all__ = [
     "finalize_ndt_sums",
     "ndt_derivatives",
     "ndt_align",
+    "ndt_fitness_score",
     "point_nn_fitness_score",
 ]

@@ -1,7 +1,16 @@
 from .eigh3 import sym_eigh3
 from .hashgrid import BucketGrid, build_bucket_grid, knn_query
 from .linalg3 import solve3
-from .pointcloud import PointCloud, finite_mask, rotated_box_mask, scatter_sum, voxel_downsample
+from .pointcloud import (
+    PointCloud,
+    box_crop_mask,
+    finite_mask,
+    range_mask,
+    rotated_box_mask,
+    scatter_sum,
+    voxel_downsample,
+    voxel_downsample_dense,
+)
 
 __all__ = [
     "sym_eigh3",
@@ -10,8 +19,11 @@ __all__ = [
     "knn_query",
     "solve3",
     "PointCloud",
+    "box_crop_mask",
     "finite_mask",
+    "range_mask",
     "rotated_box_mask",
     "scatter_sum",
     "voxel_downsample",
+    "voxel_downsample_dense",
 ]

@@ -9,7 +9,8 @@ the per-frame path waits on the device for a data-dependent size.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import math
+from typing import Optional, Tuple
 
 import torch
 
@@ -68,6 +69,21 @@ class PointCloud:
 def finite_mask(points):
     """True where all three coordinates are finite."""
     return torch.all(torch.isfinite(points), dim=-1)
+
+
+def range_mask(points, min_range: float = 0.0, max_range: float = math.inf):
+    """True where min_range <= |p| <= max_range."""
+    r2 = torch.sum(points * points, dim=-1)
+    return (r2 >= min_range * min_range) & (r2 <= max_range * max_range)
+
+
+def box_crop_mask(points, min_corner, max_corner):
+    """True where points lie inside the axis-aligned box [min_corner,
+    max_corner] (the reference's BoxFilter with its edges derived from
+    origin and size at the call site)."""
+    lo = torch.as_tensor(min_corner, dtype=points.dtype).to(points.device, non_blocking=True)
+    hi = torch.as_tensor(max_corner, dtype=points.dtype).to(points.device, non_blocking=True)
+    return torch.all((points >= lo) & (points <= hi), dim=-1)
 
 
 def scatter_sum(target, index, values, keep):
@@ -165,6 +181,53 @@ def voxel_downsample(cloud: PointCloud, leaf_size, out_capacity: Optional[int] =
     return PointCloud(
         points=torch.where(out_mask[:, None], centroids, 0.0), mask=out_mask, weights=wmeans
     )
+
+
+def voxel_downsample_dense(
+    cloud: PointCloud,
+    leaf_size,
+    out_capacity: int,
+    dims: Tuple[int, int, int] = (352, 352, 96),
+) -> PointCloud:
+    """Sort-free voxel-grid centroid downsampling over a bounded dense grid
+    `dims` anchored at the cloud's min corner: per-voxel sums into the
+    dense grid (`scatter_sum`), then the occupied cells compacted by
+    cumsum + searchsorted, in flat-id (x-major) order, the order of
+    `voxel_downsample`. Points outside origin + dims * leaf are dropped.
+    Centroids match `voxel_downsample` to float32 summation order."""
+    pts = cloud.points
+    mask = cloud.mask
+    w = cloud.get_weights()
+    dev = pts.device
+    leaf = torch.as_tensor(leaf_size, dtype=torch.float32)
+    leaf = float(leaf) if leaf.ndim == 0 else leaf.to(dev, non_blocking=True)
+    v = dims[0] * dims[1] * dims[2]
+
+    coords = torch.floor(pts / leaf).to(torch.int32)
+    cmin = torch.where(mask[:, None], coords, 2**20).amin(dim=0)
+    rel = coords - cmin
+    dims_t = torch.as_tensor(dims, dtype=torch.int32).to(dev, non_blocking=True)
+    ok = mask & torch.all((rel >= 0) & (rel < dims_t), dim=-1)
+    rel = rel.long()
+    vid = torch.where(ok, (rel[:, 0] * dims[1] + rel[:, 1]) * dims[2] + rel[:, 2], v)
+
+    zeros = torch.zeros(v, dtype=torch.float32, device=dev)
+    counts = scatter_sum(zeros, vid, torch.ones_like(w), ok)
+    sums = scatter_sum(torch.zeros((v, 3), device=dev), vid, pts, ok)
+    wsums = scatter_sum(zeros, vid, w, ok)
+
+    csum = torch.cumsum((counts > 0.0).to(torch.int32), dim=0, dtype=torch.int32)
+    total = torch.clamp(csum[-1], max=out_capacity)
+    j = torch.arange(out_capacity, dtype=torch.int32, device=dev)
+    keys = torch.searchsorted(csum, j + 1, side="left", out_int32=True)
+    has = j < total
+    kv = torch.where(has, keys, 0).long()
+
+    cnt = torch.where(has, counts[kv], 0.0)
+    denom = torch.clamp(cnt, min=1.0)
+    centroids = torch.where(has[:, None], sums[kv] / denom[:, None], 0.0)
+    wmeans = torch.where(has, wsums[kv] / denom, 1.0)
+    return PointCloud(points=centroids, mask=has & (cnt > 0), weights=wmeans)
 
 
 def rotated_box_mask(points, boxes):

@@ -7,6 +7,7 @@ from .front_end import (
     init_front_end_drive,
 )
 from .loop_closing import LoopClosing, LoopClosingConfig, LoopPose
+from .matching import Matching, MatchingConfig, matching_drive
 
 __all__ = [
     "BackEnd",
@@ -20,4 +21,7 @@ __all__ = [
     "LoopClosing",
     "LoopClosingConfig",
     "LoopPose",
+    "Matching",
+    "MatchingConfig",
+    "matching_drive",
 ]

@@ -3,6 +3,7 @@ static weights, the incremental map update, the host FrontEnd and the
 scan-chained drive, on the scenes of tests/test_front_end.py.
 
 Scans come from the shared numpy simulator; the JAX side runs on the CPU.
+Torch is pinned to one CPU thread while the file runs.
 Trajectory tolerance: 2e-2 m, the JAX package's own drive-vs-stepwise
 bound (test_front_end.py:92-94) — two implementations whose derivative
 sums differ only in float32 summation order.
@@ -12,6 +13,7 @@ import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from lidar_slam_tpu.io import SyntheticWorld, make_trajectory, simulate_scan
@@ -31,6 +33,18 @@ CFG_T = tfe.FrontEndConfig(
     ndt=TNDTConfig(resolution=1.0, grid_dims=(96, 96, 24), point_chunk=2048, max_iter=25, gather="auto"), **_KW
 )
 N_FRAMES = 12
+# the branch the card takes: each alignment one ndt_newton call (its plain version on the CPU)
+CARD_NDT = dataclasses.replace(CFG_T.ndt, gather="fused")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Torch on one CPU thread while this file runs: its default pool made
+    these small host-loop ops several times slower under the test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _np(x):
@@ -216,3 +230,154 @@ def test_weighted_drive_matches_reference():
     # the keyframe weights (static weighting) reached the map's statistics
     np.testing.assert_allclose(_np(stt.kf_weights), np.asarray(sj.kf_weights), atol=1e-3)
     assert (_np(stt.kf_weights) < 0.5).sum() > 100
+
+
+def _eigenvalues64(sums, keys):
+    """Eigenvalues (ascending) of each compact row's voxel covariance, in
+    float64 from the reference sums."""
+    v = np.maximum(keys, 0)
+    n = np.maximum(np.asarray(sums.count, np.float64)[v], 1.0)
+    rel = np.asarray(sums.psum, np.float64)[v] / n[:, None]
+    pp = np.asarray(sums.ppsum, np.float64)[v] / n[:, None]
+    i6 = [[0, 1, 2], [1, 3, 4], [2, 4, 5]]
+    return np.linalg.eigvalsh(pp[:, i6] - rel[:, :, None] * rel[:, None, :])
+
+
+def _jax_local_map_on_lattice(monkeypatch):
+    """Make the JAX FrontEnd build its rebuilt coarse map with the port's
+    corner (coarse_origin): the same sums and keys, looked up where they
+    were scattered. The JAX package's own corner makes tracking diverge."""
+    build = jfe._build_local_map
+
+    def on_lattice(*args, **kw):
+        cloud, fine, coarse = build(*args, **kw)
+        if coarse is not None:
+            coarse = coarse.replace(
+                origin=jnp.asarray(tfe.coarse_origin(np.asarray(fine.origin), coarse.resolution)))
+        return cloud, fine, coarse
+
+    monkeypatch.setattr(jfe, "_build_local_map", on_lattice)
+
+
+def _keyframes(frames, gt, idx, rng):
+    """Keyframe records as a store holds them: the sensor-frame points of
+    raw scans `idx` with their poses, weights on every other one."""
+    recs = []
+    for k, i in enumerate(idx):
+        pts, mask = frames[i]
+        rec = {"points": pts[mask], "pose": gt[i]}
+        if k % 2:
+            rec["weights"] = rng.uniform(0.2, 1.0, int(mask.sum())).astype(np.float32)
+        recs.append(rec)
+    return recs
+
+
+@pytest.mark.parametrize("n_keyframes", [4, 10])
+def test_build_local_map_matches_reference(n_keyframes):
+    """_build_local_map on a window of downsampled keyframes (4 of 10 slots
+    filled: no 0.3 m filter; 10: filtered): the same cloud, the fine and
+    coarse maps' keys, index and counts equal to the JAX package's, their
+    statistics within 1e-5. The coarse map's corner is the JAX map's rounded
+    to the 2 m lattice its sums were scattered on (here z's fine corner,
+    -11 m, is odd): every point looks up the cell it was scattered into,
+    where from the JAX map's corner about half do not."""
+    gt, frames, _, _ = _corridor_frames(n=2 * n_keyframes)
+    rng = np.random.default_rng(3)
+    k, p = CFG_J.local_frame_num, CFG_J.keyframe_capacity
+    kf_p, kf_m = np.zeros((k, p, 3), np.float32), np.zeros((k, p), bool)
+    kf_w = np.ones((k, p), np.float32)
+    poses, valid = np.tile(np.eye(4, dtype=np.float32), (k, 1, 1)), np.zeros(k, bool)
+    for s in range(n_keyframes):
+        i = 2 * s
+        kf = tfe.voxel_downsample(tfe._preprocess(_t(frames[i][0]), _t(frames[i][1]), 8192, 0.5), 0.5,
+                                  out_capacity=p)
+        kf_p[s], kf_m[s], poses[s], valid[s] = _np(kf.points), _np(kf.mask), gt[i], True
+        kf_w[s] = rng.uniform(0.3, 1.0, p)
+    center = gt[2 * n_keyframes - 2][:3, 3]
+    cj, mj, cmj = jfe._build_local_map(*(jnp.asarray(a) for a in (kf_p, kf_m, kf_w, poses, valid)),
+                                       jnp.int32(n_keyframes), jnp.asarray(center), CFG_J)
+    ct, mt, cmt = tfe._build_local_map(_t(kf_p), _t(kf_m), _t(kf_w), poses, valid, n_keyframes, center, CFG_T)
+    np.testing.assert_array_equal(_np(ct.mask), np.asarray(cj.mask))
+    np.testing.assert_allclose(_np(ct.points), np.asarray(cj.points), atol=1e-5)
+    np.testing.assert_allclose(_np(ct.weights), np.asarray(cj.weights), atol=1e-5)
+    ccfg = dataclasses.replace(CFG_J.ndt, resolution=2.0, grid_dims=(48, 48, 12))
+    np.testing.assert_array_equal(_np(mt.origin), np.asarray(mj.origin))
+    np.testing.assert_array_equal(_np(cmt.origin), tfe.coarse_origin(np.asarray(cmj.origin), 2.0))
+    assert np.asarray(cmj.origin)[2] % 2.0 == 1.0 and np.all(_np(cmt.origin) % 2.0 == 0.0)
+    pts = np.asarray(cj.points)[np.asarray(cj.mask)]
+    scattered = np.floor(pts / 2.0) - np.round(np.asarray(cmj.origin) / 2.0)
+    assert np.array_equal(np.floor((pts - _np(cmt.origin)) / 2.0), scattered)
+    assert 0.2 < np.mean(np.any(np.floor((pts - np.asarray(cmj.origin)) / 2.0) != scattered, axis=1)) < 0.8
+    for t, j, c in ((mt, mj, CFG_J.ndt), (cmt, cmj, ccfg)):
+        np.testing.assert_array_equal(_np(t.keys), np.asarray(j.keys))
+        np.testing.assert_array_equal(_np(t.index), np.asarray(j.index))
+        np.testing.assert_array_equal(_np(t.count), np.asarray(j.count))
+        tp, jp = _np(t.packed), np.asarray(j.packed)
+        np.testing.assert_allclose(tp[:, :4], jp[:, :4], rtol=1e-5, atol=1e-5)  # mean, weight
+        np.testing.assert_allclose(_np(t.mean), np.asarray(j.mean), rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(_np(t.staticvalue), np.asarray(j.staticvalue), rtol=1e-5, atol=1e-5)
+        # the valid flag rests on float32 rounding where the voxel is
+        # degenerate (the reference sums name those rows); the inverse
+        # covariances are left to the alignments of the front-end tests: on
+        # line-like voxels (poles) the closed-form eigenvectors are
+        # ill-conditioned in both packages
+        sums = jndt.scatter_to_sums(jndt.empty_ndt_sums(j.origin, c), cj.points, cj.mask, cj.weights)
+        used = np.asarray(j.keys) >= 0
+        ev = _eigenvalues64(sums, np.asarray(j.keys))
+        waived = used & (ev[:, 0] <= 1e-4 * ev[:, 2])
+        np.testing.assert_array_equal(tp[~waived, 10], jp[~waived, 10])
+        assert waived.sum() < 0.5 * used.sum()
+    assert int((_np(mt.keys) >= 0).sum()) > 300
+
+
+def test_rebuilt_map_front_end_matches_reference(monkeypatch):
+    """FrontEnd(incremental_map=False), the local map rebuilt from the
+    keyframe window at each keyframe (0.3 m filtered from the third on),
+    through the card's branch (gather="fused": ndt_newton's plain version
+    here): the same keyframe flags as the JAX FrontEnd (its coarse map on
+    the port's corner), poses within 5e-3 m."""
+    _jax_local_map_on_lattice(monkeypatch)
+    gt, frames, _, _ = _corridor_frames()
+    kw = dict(incremental_map=False, local_map_filter_min_frames=3)
+    fj = jfe.FrontEnd(dataclasses.replace(CFG_J, **kw))
+    ft = tfe.FrontEnd(dataclasses.replace(CFG_T, ndt=CARD_NDT, **kw), device="cpu")
+    fj.set_init_pose(gt[0])
+    ft.set_init_pose(gt[0])
+    for i, (pts, mask) in enumerate(frames):
+        pj, kj = fj.update(pts, jnp.asarray(mask))
+        pt, kt = ft.update(pts, mask)
+        assert kt == kj, f"frame {i}"
+        np.testing.assert_allclose(pt[:3, 3], pj[:3, 3], atol=5e-3, err_msg=f"frame {i}")
+    assert ft.n_keyframes == fj.n_keyframes >= 4 and ft.fine_sums is None and ft.local_map_cloud is not None
+    np.testing.assert_allclose(pt[:3, 3], gt[-1][:3, 3], atol=0.35)
+
+
+@pytest.mark.parametrize("incremental", [True, False])
+def test_restore_matches_reference(incremental, monkeypatch):
+    """FrontEnd.restore from stored keyframes (tests/test_checkpoint_resume.py's
+    resume, through the tracking state), then two updates through the
+    card's branch: the same slot cursor, keyframes and map keys as the JAX
+    FrontEnd.restore, poses within 2e-2 m, this file's bound (each
+    alignment stops once a step is under trans_eps = 1 cm, and the 0.3 m-
+    filtered coarse map's degenerate voxels, whose valid flags rest on
+    float32 rounding, move where the coarse pass hands over)."""
+    _jax_local_map_on_lattice(monkeypatch)
+    gt, frames, _, _ = _corridor_frames()
+    recs = _keyframes(frames, gt, (0, 2, 4, 6, 7), np.random.default_rng(4))
+    cfg = dict(incremental_map=incremental)
+    fj = jfe.FrontEnd(dataclasses.replace(CFG_J, **cfg))
+    ft = tfe.FrontEnd(dataclasses.replace(CFG_T, ndt=CARD_NDT, **cfg), device="cpu")
+    for f in (fj, ft):
+        f.restore(recs, total_keyframes=13, last_pose=gt[9], predict_pose=gt[10])
+    assert (ft.kf_cursor, ft.n_keyframes) == (fj.kf_cursor, fj.n_keyframes) == (13, 13)
+    np.testing.assert_array_equal(ft.kf_valid, fj.kf_valid)
+    np.testing.assert_array_equal(_np(ft.kf_masks), np.asarray(fj.kf_masks))
+    np.testing.assert_allclose(_np(ft.kf_weights), np.asarray(fj.kf_weights), atol=1e-5)
+    np.testing.assert_array_equal(_np(ft.ndt_map.keys), np.asarray(fj.ndt_map.keys))
+    np.testing.assert_array_equal(ft.last_pose, gt[9])
+    for i in (10, 11):
+        pj, kj = fj.update(frames[i][0], jnp.asarray(frames[i][1]))
+        pt, kt = ft.update(*frames[i])
+        assert kt == kj
+        np.testing.assert_allclose(pt[:3, 3], pj[:3, 3], atol=2e-2, err_msg=f"frame {i}")
+        assert np.linalg.norm(pt[:3, 3] - gt[i][:3, 3]) < 0.1

@@ -12,6 +12,7 @@ zeros on both sides.
 """
 
 import dataclasses
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -86,16 +87,82 @@ def _loop_submap_maps():
     return jm, tm
 
 
-@pytest.mark.parametrize("case", [*CAPS, "loop_submap"])
+@functools.lru_cache(maxsize=None)
+def _rebuilt_local_maps():
+    """The front end's rebuilt local map (incremental_map=False), as each
+    package builds it from one window of keyframes: {"fine": (JAX map,
+    port map), "coarse": ...}."""
+    from lidar_slam_tpu.io import SyntheticWorld, make_trajectory, simulate_scan
+    from lidar_slam_tpu.models.registration import NDTConfig as JNDTConfig
+    from lidar_slam_tpu.pipeline import front_end as jfe
+
+    from lidar_slam_tpu_torch.models.registration import NDTConfig as TNDTConfig
+    from lidar_slam_tpu_torch.pipeline import front_end as tfe
+
+    world = SyntheticWorld.corridor(length=40.0, width=14.0, density=20.0, seed=4)
+    gt = make_trajectory(7, speed=1.0)
+    kw = dict(keyframe_capacity=4096, local_frame_num=4, local_map_filter_min_frames=3, incremental_map=False)
+    ndt = dict(resolution=1.0, grid_dims=(64, 64, 16), max_compact_voxels=2048)
+    cfg_j = jfe.FrontEndConfig(ndt=JNDTConfig(**ndt), **kw)
+    cfg_t = tfe.FrontEndConfig(ndt=TNDTConfig(**ndt), **kw)
+    kf_p, kf_m = np.zeros((4, 4096, 3), np.float32), np.zeros((4, 4096), bool)
+    poses = np.tile(np.eye(4, dtype=np.float32), (4, 1, 1))
+    for s in range(3):
+        pts, mask, _ = simulate_scan(world, gt[2 * s], max_range=30.0, n_points=4096, seed=s)
+        kf_p[s], kf_m[s], poses[s] = np.where(mask[:, None], pts, 0.0), mask, gt[2 * s]
+    valid, w = np.arange(4) < 3, np.ones((4, 4096), np.float32)
+    _, jf, jc = jfe._build_local_map(*(jnp.asarray(a) for a in (kf_p, kf_m, w, poses, valid)), jnp.int32(3),
+                                     jnp.asarray(gt[4][:3, 3]), cfg_j)
+    _, tf, tc = tfe._build_local_map(torch.as_tensor(kf_p), torch.as_tensor(kf_m), torch.as_tensor(w), poses,
+                                     valid, 3, gt[4][:3, 3], cfg_t)
+    # the same keys; the port's coarse corner is the JAX one on the 2 m lattice
+    return {"fine": (jf, tf), "coarse": (jc, tc)}
+
+
+@functools.lru_cache(maxsize=None)
+def _matching_local_maps():
+    """Matching's box-cropped local maps (fine and coarse, no dense stats),
+    as each package's Matching builds them around one position."""
+    from lidar_slam_tpu.io import SyntheticWorld
+    from lidar_slam_tpu.models.registration import NDTConfig as JNDTConfig
+    from lidar_slam_tpu.pipeline import matching as jmatch
+
+    from lidar_slam_tpu_torch.models.registration import NDTConfig as TNDTConfig
+    from lidar_slam_tpu_torch.pipeline import matching as tmatch
+
+    gmap = SyntheticWorld.corridor(length=60.0, width=14.0, density=20.0, seed=5).points
+    kw = dict(box_size=50.0, local_map_capacity=1 << 14)
+    ndt = dict(resolution=1.0, grid_dims=(64, 64, 16), max_compact_voxels=2048)
+    mj = jmatch.Matching(jmatch.MatchingConfig(ndt=JNDTConfig(**ndt), **kw), gmap)
+    mt = tmatch.Matching(tmatch.MatchingConfig(ndt=TNDTConfig(**ndt), **kw), gmap, device="cpu")
+    for m in (mj, mt):
+        m.reset_local_map(np.float32([20.0, 1.0, 1.8]))
+    return {"fine": (mj.ndt_map, mt.ndt_map), "coarse": (mj.coarse_ndt_map, mt.coarse_ndt_map)}
+
+
+NEW_MAPS = {"rebuilt_local_map": _rebuilt_local_maps, "matching_local_map": _matching_local_maps}
+
+
+@pytest.mark.parametrize(
+    "case",
+    [*CAPS, "loop_submap", *(f"{name}_{level}" for name in NEW_MAPS for level in ("fine", "coarse"))],
+)
 def test_map_keys_ascend_unsigned(case):
     """The port's finalize_ndt_sums keys, the JAX package's from both of its
     constructors (finalize_ndt_sums and _pack_rows, the sharded build's)
     and the converted map's: the same keys, in NDTMap's order. The loop
-    closure's submap map (downsampled submap, no dense stats): the port's
-    keys in that order and equal to the JAX package's."""
+    closure's submap map (downsampled submap, no dense stats), the front
+    end's rebuilt local map and Matching's box-cropped map, fine and coarse:
+    the port's keys in that order and equal to the JAX package's."""
     if case == "loop_submap":
         jm, tm = _loop_submap_maps()
         assert 0 < _assert_map_order(tm.keys.numpy()) < 2048
+        np.testing.assert_array_equal(tm.keys.numpy(), np.asarray(jm.keys))
+        return
+    if case not in CAPS:
+        name, level = case.rsplit("_", 1)
+        jm, tm = NEW_MAPS[name]()[level]
+        assert 100 < _assert_map_order(tm.keys.numpy()) < 2048
         np.testing.assert_array_equal(tm.keys.numpy(), np.asarray(jm.keys))
         return
     jm, tm, cfg_j = _maps(CAPS[case])

@@ -1,6 +1,7 @@
 """Parity of the PyTorch port's NDT module with the JAX package: map build
 and incremental maintenance, the derivative reduction (kernel K1's plain
-version on the CPU), the host Newton loop, and the state converter.
+version on the CPU), the host Newton loop, the LM solver, the NDT fitness
+score, and the state converter.
 
 Inputs are made with numpy from a seed; the JAX side runs on the CPU (its
 fused Pallas kernel in interpret mode). On CPU tensors the port's K1
@@ -226,7 +227,7 @@ class TestAlignSide:
                 rtol=1e-4, atol=1e-5,
             )
 
-    def test_onehot_gather_raises(self):
+    def test_onehot_gather_equals_two_level(self):
         """gather="onehot" fetches the same rows by key (K3's plain version
         on the CPU), so its sums equal two_level's; an unknown mode raises."""
         pts = make_scene(5, 30, seed=0)
@@ -349,3 +350,86 @@ class TestAlignSide:
         np.testing.assert_allclose(_np(r.pose), _np(guess), atol=1e-6)
         assert r.converged and r.iterations == 1
 
+
+class TestLMAndFitness:
+    """lm_align and ndt_fitness_score on tests/test_ndt.py's scenes."""
+
+    @pytest.mark.parametrize("gather", ["two_level", "fused"])
+    def test_lm_matches_reference(self, gather):
+        """ndt_align(solver="lm") against the JAX package's on
+        tests/test_ndt.py:271-285's scene: poses within 5e-3 m / rad (the
+        iteration counts may differ: accept or reject turns on float32
+        noise), both recovering the identity. gather="fused" is the card's
+        branch: each evaluation goes through K1's wrapper (its plain version
+        here), once per LM evaluation."""
+        pts = make_scene(30, 60, seed=2)
+        jm = jndt.build_ndt_map(JCloud.from_points(pts), CFG_J, origin=jnp.asarray(ORIGIN))
+        guess = np.eye(4, dtype=np.float32)
+        guess[:3, 3] = [0.2, 0.1, 0.0]
+        rj = jndt.ndt_align(jm, JCloud.from_points(pts[:1500], capacity=1500), jnp.asarray(guess),
+                            dataclasses.replace(CFG_J, solver="lm"))
+        calls = []
+        plain = ndt_fused.ndt_reduce_plain
+        with pytest.MonkeyPatch.context() as mp:
+            # K1's wrapper takes its plain version (fused); two_level calls it directly
+            for module in (ndt_fused, tndt):
+                mp.setattr(module, "ndt_reduce_plain", lambda *a, **k: calls.append(1) or plain(*a, **k))
+            rt = tndt.ndt_align(port_map_of(jm), TCloud.from_points(pts[:1500]), torch.as_tensor(guess),
+                                dataclasses.replace(CFG_T, solver="lm", gather=gather))
+        pj, pt = np.asarray(rj.pose), _np(rt.pose)
+        np.testing.assert_allclose(pt[:3, 3], pj[:3, 3], atol=5e-3)
+        np.testing.assert_allclose(pt[:3, :3], pj[:3, :3], atol=5e-3)
+        assert np.linalg.norm(pt[:3, 3]) < 0.05 and np.linalg.norm(pj[:3, 3]) < 0.05
+        assert len(calls) == rt.iterations + 1 and rt.unresolved == 0.0
+        np.testing.assert_allclose(rt.score, float(rj.score), rtol=1e-3)
+
+    def test_lm_rejects_bad_steps(self):
+        """From a guess where the damped step lowers the score, the trial is
+        rejected, the pose kept and lambda grown ninefold until a step is
+        accepted; a step of 0 (singular system) is never accepted."""
+        H = -np.eye(6, dtype=np.float32)
+        g = np.zeros(6, np.float32)
+        delta, bad = tndt._solve_damped(-H, -g, np.float32(1e-4))
+        assert not bad and np.all(delta == 0.0)
+        delta, bad = tndt._solve_damped(np.zeros((6, 6), np.float32), np.ones(6, np.float32), np.float32(0.0))
+        assert bad and np.all(delta == 0.0)
+        evals = []
+
+        def derivs(p, _):
+            evals.append(p.copy())
+            score = -np.float32(np.sum((p - 1.0) ** 2)) - (np.float32(10.0) if len(evals) == 2 else 0.0)
+            return score, -2.0 * (p - 1.0), -2.0 * np.eye(6, dtype=np.float32), np.float32(0.0)
+
+        r = tndt.lm_align(derivs, np.eye(4, dtype=np.float32), CFG_T, 1)
+        # the first trial is rejected: the next starts from the same pose with a shorter step
+        assert np.all(evals[0] == 0.0) and np.all((0.0 < evals[2]) & (evals[2] < evals[1]))
+        assert r.converged and r.iterations < CFG_T.max_iter
+        np.testing.assert_allclose(tndt._matrix_to_pose(r.pose), np.ones(6), atol=2e-2)
+
+    def test_fitness_matches_reference(self):
+        """ndt_fitness_score against the JAX function (tests/test_ndt.py:
+        180-190's scene) at a good and a bad pose and at a max_range whose
+        stencil reaches its cap, within 1e-5 relative; a map without dense
+        stats raises."""
+        pts = make_scene(30, 50, seed=7)
+        jm = jndt.build_ndt_map(JCloud.from_points(pts), CFG_J, origin=jnp.asarray(ORIGIN))
+        tm = port_map_of(jm)
+        rng = np.random.default_rng(5)
+        src = pts[:500] + rng.normal(0, 0.05, (500, 3)).astype(np.float32)
+        mask = rng.uniform(size=500) > 0.1
+        bad = np.eye(4, dtype=np.float32)
+        bad[:3, 3] = [1.5, 1.5, 0.0]
+        bad[:2, :2] = [[np.cos(0.2), -np.sin(0.2)], [np.sin(0.2), np.cos(0.2)]]
+        fits = []
+        for T, max_range in ((np.eye(4, dtype=np.float32), 4.0), (bad, 4.0), (bad, 10.0), (bad, 0.5)):
+            fj = float(jndt.ndt_fitness_score(jm, JCloud(points=jnp.asarray(src), mask=jnp.asarray(mask)),
+                                              jnp.asarray(T), CFG_J, max_range=max_range))
+            ft = float(tndt.ndt_fitness_score(tm, TCloud(points=_t(src), mask=_t(mask)), torch.as_tensor(T), CFG_T,
+                                              max_range=max_range))
+            np.testing.assert_allclose(ft, fj, rtol=1e-5)
+            fits.append(ft)
+        assert fits[0] < 0.5 < fits[1]
+        sparse = tndt.build_ndt_map(TCloud.from_points(pts), dataclasses.replace(CFG_T, dense_stats=False),
+                                    origin=ORIGIN)
+        with pytest.raises(ValueError, match="dense"):
+            tndt.ndt_fitness_score(sparse, TCloud.from_points(src), torch.eye(4), CFG_T)

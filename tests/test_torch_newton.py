@@ -233,8 +233,9 @@ def test_empty_map_keeps_the_guess():
 
 def test_align_routes_to_plain_on_cpu(monkeypatch):
     """On CPU tensors ndt_align takes ndt_newton's plain version for the
-    fused Newton configuration, and the host loop for every other one; no
-    kernel is launched either way."""
+    fused Newton configuration, and the host loop for every other one,
+    solver="lm" among them, whose every evaluation goes through K1's
+    wrapper (its plain version here); no kernel is launched either way."""
     calls = []
     plain = ndt_newton.ndt_newton_plain
     monkeypatch.setattr(ndt_newton, "ndt_newton_plain", lambda *a, **k: calls.append(1) or plain(*a, **k))
@@ -249,8 +250,12 @@ def test_align_routes_to_plain_on_cpu(monkeypatch):
     for other in (dict(gather="auto"), dict(gather="two_level"), dict(max_step_iterations=3)):
         tndt.ndt_align(m, cloud, g, dataclasses.replace(cfg, **other))
     assert calls == [1] and host == [1, 1, 1]
-    with pytest.raises(NotImplementedError):
-        tndt.ndt_align(m, cloud, g, dataclasses.replace(cfg, solver="lm"))
+    k1 = []
+    k1_plain = ndt_fused.ndt_reduce_plain
+    monkeypatch.setattr(ndt_fused, "ndt_reduce_plain", lambda *a, **k: k1.append(1) or k1_plain(*a, **k))
+    lm = tndt.ndt_align(m, cloud, g, dataclasses.replace(cfg, solver="lm"))
+    assert calls == [1] and host == [1, 1, 1, 1] and len(k1) == lm.iterations + 1 >= 2
+    np.testing.assert_allclose(lm.pose.numpy(), r.pose.numpy(), atol=5e-3)
     assert (ndt_newton.launches, ndt_fused.launches) == before
 
 

@@ -16,13 +16,17 @@ import pytest
 import torch
 
 from lidar_slam_tpu.geom import se3 as jgeom
+from lidar_slam_tpu.models import ground_seg as jgs
 from lidar_slam_tpu.ops import PointCloud as JCloud
+from lidar_slam_tpu.ops import pointcloud as jpc
 from lidar_slam_tpu.ops import rotated_box_mask as j_rotated_box_mask
 from lidar_slam_tpu.ops import sym_eigh3 as j_sym_eigh3
 from lidar_slam_tpu.ops import voxel_downsample as j_voxel_downsample
 
 import lidar_slam_tpu_torch as port
 from lidar_slam_tpu_torch import geom as tgeom
+from lidar_slam_tpu_torch.models import ground_seg as tgs
+from lidar_slam_tpu_torch.ops import pointcloud as tpc
 from lidar_slam_tpu_torch.ops import PointCloud as TCloud
 from lidar_slam_tpu_torch.ops import rotated_box_mask as t_rotated_box_mask
 from lidar_slam_tpu_torch.ops import scatter_sum
@@ -277,3 +281,86 @@ class TestRotatedBoxMask:
         t = _np(t_rotated_box_mask(torch.as_tensor(pts), torch.as_tensor(boxes)))
         np.testing.assert_array_equal(t, j)
         assert t.sum() > 50
+
+
+class TestMasksAndDenseDownsample:
+    def test_range_and_box_masks(self):
+        """range_mask and box_crop_mask (tests/test_ops.py:47-56) on seeded
+        points, some exactly on the edges: equal to the JAX masks."""
+        rng = np.random.default_rng(11)
+        pts = rng.uniform(-60, 60, size=(5000, 3)).astype(np.float32)
+        pts[:8] = [[1, 0, 0], [50, 0, 0], [0, 0, 0], [np.nan, 0, 0], [-20, 5, 3], [20, -5, -3], [20, 5, 4], [0, 0, -3]]
+        for lo, hi in ((0.0, np.inf), (1.0, 50.0), (5.0, 30.0)):
+            j = np.asarray(jpc.range_mask(jnp.asarray(pts), min_range=lo, max_range=hi))
+            t = _np(tpc.range_mask(_t(pts), min_range=lo, max_range=hi))
+            np.testing.assert_array_equal(t, j)
+        j = np.asarray(jpc.box_crop_mask(jnp.asarray(pts), [-20, -5, -3], [20, 5, 3]))
+        t = _np(tpc.box_crop_mask(_t(pts), [-20, -5, -3], [20, 5, 3]))
+        np.testing.assert_array_equal(t, j)
+        assert t[4] and t[5] and not t[6] and 5 < t.sum() < len(pts)
+
+    @pytest.mark.parametrize("dims", [(352, 352, 96), (64, 64, 16)])
+    def test_voxel_downsample_dense_matches_reference(self, dims):
+        """voxel_downsample_dense against the JAX function on
+        tests/test_ops.py:141-160's cloud: the same voxels in the same
+        order, centroids and weights to 1e-6; with (64, 64, 16) cells most
+        points fall outside the grid and are dropped by both."""
+        rng = np.random.default_rng(0)
+        pts = rng.uniform(-40, 40, (20000, 3)).astype(np.float32)
+        pts[:, 2] = rng.uniform(-2, 10, 20000)
+        mask = rng.uniform(size=20000) > 0.1
+        w = rng.uniform(0, 1, 20000).astype(np.float32)
+        j = jpc.voxel_downsample_dense(
+            JCloud(points=jnp.asarray(pts), mask=jnp.asarray(mask), weights=jnp.asarray(w)), 0.5,
+            out_capacity=16384, dims=dims,
+        )
+        t = tpc.voxel_downsample_dense(TCloud(points=_t(pts), mask=_t(mask), weights=_t(w)), 0.5,
+                                       out_capacity=16384, dims=dims)
+        np.testing.assert_array_equal(_np(t.mask), np.asarray(j.mask))
+        np.testing.assert_allclose(_np(t.points), np.asarray(j.points), rtol=0, atol=1e-6)
+        np.testing.assert_allclose(_np(t.weights), np.asarray(j.weights), rtol=0, atol=1e-6)
+        assert 1000 < int(_np(t.mask).sum()) <= 16384
+
+
+def _gpf_margins(pts, mask, cfg):
+    """The least distance, over GPF's thresholds, of each point from where
+    its ground decision flips: |z - (lpr + th_seeds)| for the seed and
+    ||plane distance| - th_dist| for each refit, in float64 (the JAX and
+    port masks may differ only where this is tiny)."""
+    p = pts.astype(np.float64)
+    usable = mask & (p[:, 2] > -1.5 * cfg.sensor_height)
+    lpr = np.sort(p[usable, 2])[: cfg.num_lpr].mean()
+    margin = np.abs(p[:, 2] - (lpr + cfg.th_seeds))
+    ground = usable & (p[:, 2] < lpr + cfg.th_seeds)
+    for _ in range(cfg.num_iter):
+        mu = p[ground].mean(axis=0)
+        normal = np.linalg.eigh(np.cov((p[ground] - mu).T, bias=True))[1][:, 0]
+        dist = np.abs((p - mu) @ normal)
+        margin = np.minimum(margin, np.abs(dist - cfg.th_dist))
+        ground = usable & (dist < cfg.th_dist)
+    return margin
+
+
+class TestGroundSeg:
+    @pytest.mark.parametrize("seed,tilt", [(0, 0.0), (1, 0.04)])
+    def test_matches_reference(self, seed, tilt):
+        """segment_ground against the JAX function on a noisy, optionally
+        tilted ground with poles, walls and spurious low returns: the masks
+        equal except at points within 1e-4 m of th_seeds or th_dist."""
+        rng = np.random.default_rng(seed)
+        n_g, n_p = 6000, 2000
+        gx, gy = rng.uniform(-30, 30, n_g), rng.uniform(-30, 30, n_g)
+        ground = np.stack([gx, gy, -1.8 + tilt * gx + rng.normal(0, 0.08, n_g)], axis=-1)
+        other = np.stack([rng.uniform(-30, 30, n_p), rng.uniform(-30, 30, n_p), rng.uniform(-2.2, 3.0, n_p)], axis=-1)
+        pts = np.concatenate([ground, other, [[0, 0, -9.0], [1, 1, -8.0]]]).astype(np.float32)
+        mask = rng.uniform(size=len(pts)) > 0.05
+        cfg = jgs.GroundSegConfig()
+        gj, nj = (np.asarray(a) for a in jgs.segment_ground(
+            JCloud(points=jnp.asarray(np.where(mask[:, None], pts, 0.0)), mask=jnp.asarray(mask)), cfg))
+        gt, nt = (_np(a) for a in tgs.segment_ground(
+            TCloud(points=_t(np.where(mask[:, None], pts, 0.0)), mask=_t(mask)), tgs.GroundSegConfig()))
+        near = _gpf_margins(np.where(mask[:, None], pts, 0.0), mask, cfg) < 1e-4
+        np.testing.assert_array_equal(gt[~near], gj[~near])
+        np.testing.assert_array_equal(nt[~near], nj[~near])
+        assert near.sum() <= 5 and not (gt[-2:] | nt[-2:]).any()
+        assert gt[:n_g][mask[:n_g]].mean() > 0.8 and 0.3 < nt[n_g:].mean() < 0.95
