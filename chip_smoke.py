@@ -7,7 +7,8 @@ Drives the port's paths on the card: tracking, A-LOAM, the mapping back
 half (loop closure, pose-graph optimization, a whole mapping session,
 phases 11-13), map-matching localization, the rebuilt local map with
 session restore, and the LM solver (phases 15-17), and the command-line
-entry point from KITTI files on disk (phase 18). NDT scan-to-map tracking
+entry point from KITTI files on disk (phase 18), and the multi-rank layer
+(phase 19). NDT scan-to-map tracking
 runs at
 the KITTI HDL-64 operating point of bench.py (raw scans padded to 131 072
 points, frames of <= 32 768 points, 1 m NDT voxels on a 256 x 256 x 64
@@ -92,7 +93,8 @@ grid) on bench.py's aloam_leg world and trajectory, at bench.py's density
      searches under "cases"; ndt_newton's launches count the loop-closure,
      session, matching and rebuilt-map paths too, its `_loop` fields are
      phase 11's and its `_matching` fields phase 15's; K1's count the LM
-     alignments of phase 17 beside the host-loop drives;
+     alignments of phase 17 and the sharded paths of phase 19 beside the
+     host-loop drives;
  15. map-matching localization at MatchingConfig() widths (a 224 x 224 x
      48 radius27 fine map, a 112 x 112 x 24 coarse one, GPF ground removal)
      on bench.py's matching_leg world at DENSE, against the world surface
@@ -126,9 +128,23 @@ grid) on bench.py's aloam_leg world and trajectory, at bench.py's density
      (within 0.05 m of the uninterrupted run);
      `matching` (the 0.3 m guard over the drive's outbound leg, two
      launches a frame); `mapping --front-end aloam` (10 K2 launches a
-     sweep); `inspect`.
+     sweep); `inspect`;
+ 19. the multi-rank layer (mesh_phase), in rank processes started by the
+     port's launcher (parallel/launch.py): one rank under NCCL, then two
+     gloo ranks sharing the card, each at phase 3's NDT operating point:
+     every rank's strided shard of frame 0 holds valid points; K1 against
+     its plain version on each rank's shard; sharded_ndt_
+     derivatives and sharded_ndt_align (K1 once an evaluation on every
+     rank, counted by the wrappers and, at one rank, by torch.profiler,
+     with one host sync an evaluation) against the host loop and
+     ndt_newton; sharded_build_ndt_map and sharded_build_local_map (20
+     keyframes) against build_ndt_map; the edge-sharded PCG on phase 12's
+     2 048-node circle and the Schur solve on its 366-node one against the
+     single-rank optimizer; front_end_drive(mesh=) over phase 6's frames
+     against the single-rank drive and the truth; the dry run
+     (parallel/dryrun.py). Wall ms of each beside the unsharded function's.
 
-Phases 11-18 print the card's name and power limit on each summary line.
+Phases 11-19 print the card's name and power limit on each summary line.
 
 Any failed check ends the run with a non-zero exit code. The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -189,6 +205,19 @@ RESTORE_TOL = 1e-3  # FrontEnd.restore, then updates, against the uninterrupted 
 # of the optimum in its own direction, so they are held to the optimum, not to each other
 LM_TOL, OPT_EPS = 5e-3, 1e-5
 FITNESS_RTOL = 1e-5  # ndt_fitness_score, card against CPU, relative
+# Phase 19, the multi-rank layer: sharded alignments timed a world size, the 2 048-node PCG's and the
+# 366-node Schur solve's LM iterations, and the tolerances a sharded result is held to against the
+# unsharded port function at world 2 (at world 1 the alignment, the derivatives and the PCG must be the
+# same bits): test_parallel.py's own, since the sums add in another order on each layout (voxel counts
+# and means :82-83, the pose chain of a drive :227-228, the Schur solve against the dense LM :160). A
+# voxel's inverse covariance is not compared entry by entry: where its two small eigenvalues nearly
+# coincide (a pole's returns) it moves by up to a third of its largest entry between two summation
+# orders (the closed-form eigh3 loses the eigenvectors' orthogonality there); it is held through its
+# use, an alignment on either map within trans_eps.
+MESH_FRAMES, MESH_PCG_ITERS, MESH_SCHUR_ITERS = 4, 5, 20
+MAP_TOL = dict(count=1e-5, mean=1e-4)
+LAYOUT_TOL, SCHUR_TOL = 8e-2, 0.05
+MESH_TIMEOUT = 600.0  # s a launch of phase 19's ranks
 # One H100 SXM (the data sheet): HBM bytes/s and fp32 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
@@ -2259,6 +2288,288 @@ def cli_phase(work, gt, scans, smi, extra=()):
             "launches_aloam": launches_k2}
 
 
+def converged_gap(res, ref):
+    """(the largest pose gap, m or rad, over the alignments that converged in
+    both lists of results, how many did)."""
+    both = [(a, b) for a, b in zip(res, ref) if a.converged and b.converged]
+    gaps = [max(pose_gap(a.pose.numpy(), b.pose.numpy())) for a, b in both]
+    return max(gaps, default=0.0), len(both)
+
+
+def mesh_phase(workload, loaded, traj, smi):
+    """Phase 19 (see the module docstring): mesh_rank on one rank under
+    NCCL, then on two gloo ranks sharing the card; the inputs go to the
+    ranks as host arrays. Returns {world size: rank 0's results}."""
+    import torch
+
+    from lidar_slam_tpu_torch.parallel.launch import launch
+
+    map_cloud, all_pts, all_msk, gt, guess0 = workload
+    inputs = dict(
+        map_pts=map_cloud.points[map_cloud.mask].cpu().numpy(), frames_pts=all_pts.cpu().numpy(),
+        frames_msk=all_msk.cpu().numpy(), gt=gt, guess0=guess0,
+        fe_pts=np.stack([p.cpu().numpy() for p, _ in loaded]), fe_msk=np.stack([m.cpu().numpy() for _, m in loaded]),
+        fe_traj=traj,
+    )
+    torch.cuda.empty_cache()
+    out = {}
+    for world, device in ((1, None), (2, "cuda:0")):
+        t0 = time.perf_counter()
+        try:
+            res = launch("chip_smoke:mesh_rank", world, args=(inputs, smi), device=device, timeout=MESH_TIMEOUT)
+        except (RuntimeError, TimeoutError) as e:
+            raise CheckFailed(f"phase 19 on {world} rank(s): {e}") from None
+        log(f"[mesh {world}] launch, every check and the ranks' exit: {time.perf_counter() - t0:.1f} s ({smi})")
+        out[world] = res
+    return out
+
+
+def mesh_rank(mesh, inp, smi):
+    """One rank of phase 19. Every rank runs every step (the collectives
+    need them all); rank 0 logs and returns the numbers."""
+    import torch
+
+    from lidar_slam_tpu_torch.models import graph_optimizer as G
+    from lidar_slam_tpu_torch.models.registration import build_ndt_map, ndt_align
+    from lidar_slam_tpu_torch.models.registration.ndt import (
+        _matrix_to_pose, _reduce, ndt_align_host_loop, ndt_derivatives,
+    )
+    from lidar_slam_tpu_torch.ops import PointCloud
+    from lidar_slam_tpu_torch.ops.cuda import ndt_fused, ndt_newton
+    from lidar_slam_tpu_torch.parallel import (
+        optimize_pose_graph_schur, optimize_pose_graph_sharded, schur_prepare, sharded_build_local_map,
+        sharded_build_ndt_map, sharded_ndt_align, sharded_ndt_derivatives,
+    )
+    from lidar_slam_tpu_torch.parallel.collectives import all_gather, all_sum, sum_scatter
+    from lidar_slam_tpu_torch.parallel.dryrun import dryrun_rank
+    from lidar_slam_tpu_torch.parallel.sharded_ndt import _shards
+    from lidar_slam_tpu_torch.pipeline import front_end_drive, init_front_end_drive
+    from lidar_slam_tpu_torch.pipeline.front_end import _preprocess
+
+    dev, world, lead = mesh.device, mesh.size, mesh.rank == 0
+    tag = f"[mesh {world} {mesh.backend}]"
+    out = {}
+
+    def say(msg):
+        if lead:
+            log(f"{tag} {msg} ({smi})")
+
+    def every_rank(n):
+        """n from every rank, in rank order."""
+        return all_gather(torch.tensor([n], dtype=torch.int64, device=dev), mesh).tolist()
+
+    cfg = dataclasses.replace(tracking_config().ndt, gather="fused")
+    cap = -(-len(inp["map_pts"]) // 8) * 8
+    map_cloud = PointCloud.from_points(inp["map_pts"], capacity=cap, device=dev)
+    ndt_map = build_ndt_map(map_cloud, cfg)
+    all_pts = torch.as_tensor(inp["frames_pts"], device=dev)
+    all_msk = torch.as_tensor(inp["frames_msk"], device=dev)
+    frames = [_preprocess(all_pts[i], all_msk[i], FRAME_CAP, 0.5) for i in range(N_FRAMES)]
+    rng = np.random.default_rng(19)
+    guesses = []
+    for i in range(MESH_FRAMES):
+        g = inp["gt"][i].copy()
+        g[:3, 3] += rng.normal(0, 0.1, 3).astype(np.float32)
+        guesses.append(g)
+
+    # K1 against its plain version on this rank's shard of frame 0's points
+    pose6 = _matrix_to_pose(guesses[0])
+    sp, sm, sw = _shards(frames[0], mesh)
+    shard_points = every_rank(int(sm.sum()))
+    check(min(shard_points) > 0, f"{tag}: valid points of frame 0 by rank {shard_points}: a rank has none")
+    k = _reduce(ndt_map, sp, sm, sw, pose6, cfg).cpu().numpy()
+    p = _reduce(ndt_map, sp, sm, sw, pose6, dataclasses.replace(cfg, gather="two_level")).cpu().numpy()
+    rel = []
+    for name, sl in (("score", slice(0, 1)), ("grad", slice(1, 7)), ("hess", slice(7, 28))):
+        tol = TOL[name]
+        check(not (np.abs(k[sl] - p[sl]) > tol["atol"] + tol["rtol"] * np.abs(p[sl])).any(),
+              f"{tag} rank {mesh.rank}: K1 {name} on its shard: kernel {k[sl]} vs plain {p[sl]}")
+        rel.append(float(np.max(np.abs(k[sl] - p[sl])) / max(float(np.max(np.abs(p[sl]))), 1e-30)))
+    out["k1_shard_rel_err"] = max(rel)
+    out["k1_shard_points"] = shard_points
+
+    # the derivatives at one pose, and the alignments: K1 once an evaluation
+    sd = sharded_ndt_derivatives(ndt_map, frames[0], pose6, cfg, mesh)
+    ud = ndt_derivatives(ndt_map, frames[0].points, frames[0].mask, pose6, cfg, True, return_unresolved=True)
+    d_gap = max(float(np.max(np.abs(a.numpy() - b.numpy()))) for a, b in zip(sd, ud))
+    check(d_gap == 0.0 if world == 1 else d_gap <= TOL["hess"]["atol"] + TOL["hess"]["rtol"] * float(ud[2].abs().max()),
+          f"{tag}: sharded derivatives {d_gap} from ndt_derivatives")
+    sharded_ndt_align(ndt_map, frames[0], guesses[0], cfg, mesh)  # warm-up (the first collective sets up)
+    ndt_fused.launches = ndt_newton.launches = 0
+    res = [sharded_ndt_align(ndt_map, frames[i], guesses[i], cfg, mesh) for i in range(MESH_FRAMES)]
+    evals = sum(r.iterations + 1 for r in res)
+    k1_align = every_rank(ndt_fused.launches)
+    check(k1_align == [evals] * world and ndt_newton.launches == 0,
+          f"{tag}: K1 launches {k1_align} by rank in {evals} evaluations, ndt_newton {ndt_newton.launches}")
+    out["k1_align"], out["evals"] = k1_align, evals
+    hl = [ndt_align_host_loop(ndt_map, frames[i], guesses[i], cfg) for i in range(MESH_FRAMES)]
+    nn = [ndt_align(ndt_map, frames[i], guesses[i], cfg) for i in range(MESH_FRAMES)]
+    gap_hl, n_conv = converged_gap(res, hl)
+    gap_nn, _ = converged_gap(res, nn)
+    check(n_conv >= MESH_FRAMES // 2, f"{tag}: {n_conv} of {MESH_FRAMES} alignments converged in both runs")
+    check(gap_hl <= cfg.trans_eps and gap_nn <= cfg.trans_eps,
+          f"{tag}: the sharded alignment {gap_hl} from the host loop, {gap_nn} from ndt_newton")
+    if world == 1:
+        same = all(np.array_equal(a.pose.numpy(), b.pose.numpy()) for a, b in zip(res, hl))
+        check(same, f"{tag}: the sharded alignment is not the host loop's, bit for bit")
+        with counting_syncs() as syncs:
+            r0 = sharded_ndt_align(ndt_map, frames[0], guesses[0], cfg, mesh)
+        events = device_events(lambda: sharded_ndt_align(ndt_map, frames[0], guesses[0], cfg, mesh), reps=1)
+        k1_prof = sum(c for name, (c, _) in events.items() if "ndt_fused_kernel" in name)
+        check(syncs[0] == r0.iterations + 1 and k1_prof == r0.iterations + 1,
+              f"{tag}: {syncs[0]} host syncs and {k1_prof} K1 kernels (torch.profiler) in {r0.iterations + 1} "
+              f"evaluations")
+        out["syncs"], out["k1_profiler"], out["evals_one"] = syncs[0], k1_prof, r0.iterations + 1
+
+    # the collectives alone, timed directly: an evaluation's [32] sum and its
+    # host copy; a map build's [V, 11] sum_scatter and its [V, 19] rows' all_gather
+    v = int(np.prod(cfg.grid_dims))
+    out["coll_eval_ms"] = host_ms(lambda: all_sum(torch.zeros(32, device=dev), mesh).cpu(), reps=50)
+    sums_v = torch.zeros((v, 11), device=dev)
+    rows_v = torch.zeros((v // world, 19), device=dev)
+    out["coll_scatter_ms"] = host_ms(lambda: sum_scatter(sums_v, mesh), reps=3)
+    out["coll_gather_ms"] = host_ms(lambda: all_gather(rows_v, mesh), reps=3)
+    del sums_v, rows_v
+    say(f"collectives alone (wall ms, median): an evaluation's all_sum of [32] and its host copy "
+        f"{out['coll_eval_ms']:.3f}; a map build's sum_scatter of [{v}, 11] {out['coll_scatter_ms']:.1f} and "
+        f"all_gather of [{v // world}, 19] a rank {out['coll_gather_ms']:.1f}")
+
+    def per_frame(fn):
+        return host_ms(lambda: [fn(ndt_map, frames[i], guesses[i], cfg) for i in range(MESH_FRAMES)], reps=3) / MESH_FRAMES
+
+    out["align_ms"] = per_frame(lambda *a: sharded_ndt_align(*a, mesh))
+    out["host_loop_ms"] = per_frame(ndt_align_host_loop)
+    out["newton_ms"] = per_frame(ndt_align)
+    out["iterations"] = [r.iterations for r in res]
+    say(f"valid points of frame 0 by rank {out['k1_shard_points']}; K1 on rank 0's shard against its plain "
+        f"version: largest |diff| / largest |plain| of score, gradient, Hessian {out['k1_shard_rel_err']:.3e}; "
+        f"derivatives {d_gap:.3e} from ndt_derivatives; {MESH_FRAMES} sharded "
+        f"alignments, iterations {out['iterations']}: K1 launches by rank {k1_align} in {evals} evaluations"
+        + (f", {out['syncs']} host syncs and {out['k1_profiler']} K1 kernels (torch.profiler) in one alignment of "
+           f"{out['evals_one']} evaluations" if world == 1 else "")
+        + f"; from the host loop {gap_hl:.2e}, from ndt_newton {gap_nn:.2e} (m / rad, {n_conv} converged); wall "
+        f"ms an alignment: "
+        f"sharded {out['align_ms']:.3f}, ndt_align_host_loop {out['host_loop_ms']:.3f}, ndt_align (ndt_newton) "
+        f"{out['newton_ms']:.3f}")
+
+    # the map builds, against build_ndt_map of the same points
+    def map_gaps(m, ref, name, frame):
+        """MAP_TOL on the voxel statistics; the inverse covariances through
+        their use, an alignment from the same guess on either map."""
+        for f in ("valid", "keys", "index"):
+            check(torch.equal(getattr(m, f), getattr(ref, f)), f"{tag} {name}: {f} differs from build_ndt_map's")
+        gaps = {f: float((getattr(m, f) - getattr(ref, f)).abs().max()) for f in ("count", "mean", "icov", "packed")}
+        check(gaps["count"] <= MAP_TOL["count"] and gaps["mean"] <= MAP_TOL["mean"],
+              f"{tag} {name}: {gaps} from build_ndt_map's")
+        a, b = (ndt_align(mm, frame, guesses[0], cfg) for mm in (m, ref))
+        gaps["align"] = max(pose_gap(a.pose.numpy(), b.pose.numpy()))
+        check(gaps["align"] <= cfg.trans_eps or not (a.converged and b.converged),
+              f"{tag} {name}: an alignment on it {gaps['align']} from one on build_ndt_map's")
+        return gaps, all(torch.equal(getattr(m, f), getattr(ref, f)) for f in ("count", "mean", "icov", "packed"))
+
+    reps = 3 if world == 1 else 1
+    origin = ndt_map.origin
+    m = sharded_build_ndt_map(map_cloud, origin, cfg, mesh)
+    gaps, bits = map_gaps(m, build_ndt_map(map_cloud, cfg, origin=origin), "sharded_build_ndt_map", frames[0])
+    out["map_ms"] = host_ms(lambda: sharded_build_ndt_map(map_cloud, origin, cfg, mesh), reps=reps)
+    out["map_ref_ms"] = host_ms(lambda: build_ndt_map(map_cloud, cfg, origin=origin), reps=reps)
+    say(f"sharded_build_ndt_map ({int(map_cloud.mask.sum())} points, {int(m.valid.sum())} valid of "
+        f"{int(np.prod(cfg.grid_dims))} voxels): {out['map_ms']:.1f} ms against build_ndt_map's "
+        f"{out['map_ref_ms']:.1f} (wall); max |diff| {gaps}, the same bits: {bits}")
+    kf = torch.stack([f.points for f in frames])
+    kf_m = torch.stack([f.mask for f in frames])
+    kf_w = torch.ones(kf_m.shape, device=dev)
+    poses = np.asarray(inp["gt"], np.float32)
+    res_f = float(cfg.resolution)
+    origin_l = (np.floor((poses[N_FRAMES // 2, :3, 3] - 0.5 * np.asarray(cfg.grid_dims, np.float32) * res_f) / res_f)
+                * res_f).astype(np.float32)
+    valid = np.ones(N_FRAMES, bool)
+    lm = sharded_build_local_map(kf, kf_m, kf_w, poses, valid, origin_l, cfg, mesh)
+    P = torch.as_tensor(poses, device=dev)
+    world_pts = torch.einsum("kij,kpj->kpi", P[:, :3, :3], kf) + P[:, None, :3, 3]
+    flat = PointCloud(points=world_pts.reshape(-1, 3), mask=kf_m.reshape(-1), weights=kf_w.reshape(-1))
+    gaps_l, bits_l = map_gaps(lm, build_ndt_map(flat, cfg, origin=origin_l), "sharded_build_local_map", frames[0])
+    out["local_map_ms"] = host_ms(lambda: sharded_build_local_map(kf, kf_m, kf_w, poses, valid, origin_l, cfg, mesh),
+                                  reps=reps)
+    say(f"sharded_build_local_map ({N_FRAMES} keyframes x {FRAME_CAP} points, {int(lm.valid.sum())} valid "
+        f"voxels): {out['local_map_ms']:.1f} ms (wall); max |diff| {gaps_l}, the same bits: {bits_l}")
+
+    # the pose graphs: phase 12's circles
+    rng_g = np.random.default_rng(0)
+    b366 = G.PoseGraphBuilder(384, 384, 8, device=dev)
+    circle_graph(b366, 366, 60.0, rng_g)
+    b2048 = G.PoseGraphBuilder(2048, 2056, 8, device=dev)
+    circle_graph(b2048, 2048, 120.0, rng_g)
+    cfg_pcg = G.GraphOptimizerConfig(max_iterations=MESH_PCG_ITERS, solver="pcg")
+    g = b2048.to_graph()
+    go, st = optimize_pose_graph_sharded(g, cfg_pcg, mesh)
+    ref, rst = G.optimize_pose_graph(g, cfg_pcg)
+    dpos = float((go.poses[:2048, :3, 3] - ref.poses[:2048, :3, 3]).abs().max())
+    if world == 1:
+        check(torch.equal(go.poses, ref.poses) and st["chi2_after"] == rst["chi2_after"],
+              f"{tag}: the edge-sharded PCG is not the single-rank PCG, bit for bit ({dpos} m)")
+    else:
+        check(dpos <= GRAPH_TOL["2048 nodes"][0], f"{tag}: the edge-sharded PCG {dpos} m from the single-rank one")
+    check(st["chi2_after"] < st["chi2_before"], f"{tag}: the edge-sharded PCG did not lower chi2")
+    out["pcg_ms_it"] = host_ms(lambda: optimize_pose_graph_sharded(g, cfg_pcg, mesh), reps=1) / st["iterations"]
+    out["pcg_ref_ms_it"] = host_ms(lambda: G.optimize_pose_graph(g, cfg_pcg), reps=1) / rst["iterations"]
+    cfg_s = G.GraphOptimizerConfig(max_iterations=MESH_SCHUR_ITERS, solver="dense")
+    g366 = b366.to_graph()
+    sg = schur_prepare(g366, world, sep_cap=16)
+    gs, sst = optimize_pose_graph_schur(sg, cfg_s, mesh)
+    sref, srst = G.optimize_pose_graph(g366, cfg_s)
+    dpos_s = float((gs.poses[:366, :3, 3] - sref.poses[:366, :3, 3]).abs().max())
+    check(dpos_s <= SCHUR_TOL and sst["chi2_after"] < 0.2 * sst["chi2_before"],
+          f"{tag}: the Schur solve {dpos_s} m from the dense LM, chi2 {sst['chi2_before']} -> {sst['chi2_after']}")
+    out["schur_ms_it"] = host_ms(lambda: optimize_pose_graph_schur(sg, cfg_s, mesh), reps=1) / sst["iterations"]
+    out["dense_ms_it"] = host_ms(lambda: G.optimize_pose_graph(g366, cfg_s), reps=1) / srst["iterations"]
+    say(f"edge-sharded PCG (2 048 nodes, {st['iterations']} LM iterations, chi2 {st['chi2_before']:.2f} -> "
+        f"{st['chi2_after']:.4f}): {out['pcg_ms_it']:.1f} ms an iteration against the single-rank PCG's "
+        f"{out['pcg_ref_ms_it']:.1f}, poses {dpos:.2e} m apart; Schur (366 nodes, "
+        f"{int(sg.sep_valid.sum())} separators, {sst['iterations']} iterations, chi2 {sst['chi2_before']:.2f} -> "
+        f"{sst['chi2_after']:.5f}): {out['schur_ms_it']:.1f} ms an iteration against the dense LM's "
+        f"{out['dense_ms_it']:.1f} ({srst['iterations']} iterations), poses {dpos_s:.2e} m apart (wall)")
+
+    # the production drive over phase 6's frames, alignments sharded
+    fe_cfg = tracking_config()
+    traj = inp["fe_traj"]
+    pts_seq = torch.as_tensor(inp["fe_pts"][3:18], device=dev)
+    msk_seq = torch.as_tensor(inp["fe_msk"][3:18], device=dev)
+    st0 = init_front_end_drive(fe_cfg, init_pose=traj[3], device=dev)
+    ndt_fused.launches = ndt_newton.launches = 0
+    front_end_drive(st0, pts_seq, msk_seq, fe_cfg, mesh=mesh)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, poses_d, kfs, unres = front_end_drive(st0, pts_seq, msk_seq, fe_cfg, mesh=mesh)
+    torch.cuda.synchronize()
+    out["drive_ms"] = (time.perf_counter() - t0) * 1e3 / len(pts_seq)
+    k1_drive = every_rank(ndt_fused.launches)
+    check(min(k1_drive) > 0 and len(set(k1_drive)) == 1 and ndt_newton.launches == 0,
+          f"{tag}: the sharded drive launched K1 {k1_drive} times by rank, ndt_newton {ndt_newton.launches}")
+    out["k1_drive"] = k1_drive
+    t0 = time.perf_counter()
+    _, poses_u, kfs_u, _ = front_end_drive(st0, pts_seq, msk_seq, fe_cfg)
+    torch.cuda.synchronize()
+    out["drive_ref_ms"] = (time.perf_counter() - t0) * 1e3 / len(pts_seq)
+    poses_d, poses_u = poses_d.numpy(), poses_u.numpy()
+    gap_d = float(np.abs(poses_d[:, :3, 3] - poses_u[:, :3, 3]).max())
+    errs = [np.linalg.norm(poses_d[k][:3, 3] - traj[3 + k][:3, 3]) for k in range(3, len(poses_d))]
+    check(float(unres.max()) == 0.0 and kfs.tolist() == kfs_u.tolist() and gap_d <= LAYOUT_TOL,
+          f"{tag}: the sharded drive {gap_d} m from the single-rank drive, keyframes {kfs.tolist()} / {kfs_u.tolist()}")
+    check(np.mean(errs) < 0.15, f"{tag}: the sharded drive's error guard ({np.mean(errs):.4f} m)")
+    say(f"front_end_drive(mesh=) over phase 6's frames 3-17: {out['drive_ms']:.2f} ms a frame against the "
+        f"single-rank drive's {out['drive_ref_ms']:.2f} (ndt_newton; wall), {int(kfs.sum())} keyframes as the "
+        f"single-rank drive, positions {gap_d:.2e} m from it, error mean {np.mean(errs):.4f} m; K1 launches by "
+        f"rank {k1_drive} in two drives")
+
+    t0 = time.perf_counter()
+    dry = dryrun_rank(mesh)
+    say(f"dryrun_multichip({world}): ok in {time.perf_counter() - t0:.1f} s, map {dry['map_voxels']} voxels, "
+        f"PCG chi2 {dry['pcg_chi2'][0]:.2f} -> {dry['pcg_chi2'][1]:.4f}, Schur chi2 {dry['schur_chi2'][0]:.2f} -> "
+        f"{dry['schur_chi2'][1]:.4f}")
+    return out
+
+
 def reset_launches():
     from lidar_slam_tpu_torch.ops.cuda import knn_fused, ndt_fused, ndt_gather, ndt_newton
 
@@ -2389,6 +2700,13 @@ def main(argv=None) -> int:
     log(f"[launches] ndt_newton: {cli['launches']} in the CLI's mapping and matching; K2: {cli['launches_aloam']} "
         f"in its A-LOAM mapping ({smi})")
 
+    # this slice's paths: the multi-rank layer, in rank processes whose
+    # counts start at 0 and are reset inside
+    mesh = mesh_phase(workload, loaded_front, traj_front, smi)
+    k1_mesh = {w: sum(r["k1_align"]) + sum(r["k1_drive"]) for w, r in mesh.items()}
+    log(f"[launches] K1: {k1_mesh[1]} in the sharded paths on one rank, {k1_mesh[2]} on two "
+        f"({mesh[2]['k1_align']} and {mesh[2]['k1_drive']} by rank in the alignments and the drives) ({smi})")
+
     d7, r27 = parity["direct7"], parity["radius27"]
     n7, n27 = newton["direct7"], newton["radius27"]
     k2 = next(c for c in knn if c["density"] == f"{DENSE:g}" and c["case"] == "odometry")
@@ -2442,7 +2760,7 @@ def main(argv=None) -> int:
             "route": "cuda",
             "source": "lidar_slam_tpu_torch/csrc/ndt_fused.cu",
             "replaces": "lidar_slam_tpu/ops/pallas/ndt_fused.py:297",
-            "launches": launches_k1 + launches_lm,
+            "launches": launches_k1 + launches_lm + k1_mesh[1] + k1_mesh[2],
             "max_abs_err": max(d7[0], r27[0]),
             "ms": d7[1],
             "plain_ms": d7[2],
@@ -2454,6 +2772,12 @@ def main(argv=None) -> int:
             "bound_ms_radius27": r27[3],
             "launches_host_loop_drive": launches_k1,
             "launches_lm": launches_lm,
+            "launches_sharded_world1": k1_mesh[1],
+            "launches_sharded_world2": k1_mesh[2],
+            "k1_shard_rel_err_world1": mesh[1]["k1_shard_rel_err"],
+            "k1_shard_rel_err_world2": mesh[2]["k1_shard_rel_err"],
+            "sharded_align_ms_world1": mesh[1]["align_ms"],
+            "sharded_align_ms_world2": mesh[2]["align_ms"],
         },
         {
             "name": "window_knn",

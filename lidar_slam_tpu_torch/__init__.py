@@ -17,8 +17,10 @@ line-search host loop, with the stat gather by key of ``gather="onehot"``
 (K3); and the A-LOAM front end (``pipeline.aloam``: feature extraction ->
 frame-to-frame odometry -> scan-to-map mapping -> map fold) with exact
 gated k-NN over a bucket grid (K2); the mapping back half, map matching,
-and the command-line entry point (`python3 -m lidar_slam_tpu_torch mapping
-| matching | inspect`, `cli.py`) from KITTI files on disk.
+the command-line entry point (`python3 -m lidar_slam_tpu_torch mapping
+| matching | inspect`, `cli.py`) from KITTI files on disk, and the
+multi-rank layer (``parallel``: point-, keyframe-, edge- and node-sharded
+paths over torch.distributed ranks, `mapping --mesh-devices N`).
 
 Entry points run on the card: ``device(None)`` is CUDA and raises without
 it; the CPU is used only when a caller passes ``device="cpu"``.

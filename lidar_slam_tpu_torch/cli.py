@@ -18,6 +18,14 @@ fails at once. Before the first frame the CLI builds the CUDA kernels its
 path launches (nvcc, cached under build/kernels/), so a cold build shows as
 start-up time, not in frame 0.
 
+`mapping --mesh-devices N` starts N ranks itself (parallel/launch.py; no
+torchrun): rank r on `cuda:r` under NCCL, or all on the CPU under gloo with
+`--device cpu`. Rank 0 reads the frames and broadcasts each padded frame;
+every rank tracks it with its alignments point-sharded over the ranks
+(FrontEnd(mesh=)); rank 0 alone runs the back half and writes the store,
+the trajectories and the map. On `--resume` every rank restores its front
+end from the store.
+
 Where the reference triggers map save / optimization via ROS services, these
 run automatically at the end of a mapping session (and `BackEnd.force_optimize`
 / `Viewer.save_map` remain callable from the API).
@@ -68,10 +76,12 @@ def _prefetch(iterable, depth: int = 4):
         yield item
 
 
-def _path_kernels(ndt_configs, dev, aloam: bool = False) -> list:
+def _path_kernels(ndt_configs, dev, aloam: bool = False, sharded: bool = False) -> list:
     """The CUDA sources a path launches on `dev`: ndt_newton for each NDT
     configuration that aligns in one launch, else K1 (the fused gather) or
-    K3 (the onehot gather) under the host loop; K2 for A-LOAM."""
+    K3 (the onehot gather) under the host loop; K2 for A-LOAM. `sharded`:
+    the configurations align point-sharded over a mesh, always through the
+    host loop."""
     from .models.registration.ndt import takes_newton_kernel
 
     if dev.type != "cuda":
@@ -79,7 +89,7 @@ def _path_kernels(ndt_configs, dev, aloam: bool = False) -> list:
     stems = set()
     for c in ndt_configs:
         gather = c.resolve_gather(dev)
-        if takes_newton_kernel(c, dev):
+        if takes_newton_kernel(c, dev) and not sharded:
             stems.add("ndt_newton")
         elif gather == "fused":
             stems.add("ndt_fused")
@@ -90,7 +100,7 @@ def _path_kernels(ndt_configs, dev, aloam: bool = False) -> list:
     return sorted(stems)
 
 
-def _build_kernels(stems) -> None:
+def _build_kernels(stems, log: bool = True) -> None:
     """Build (or find in build/kernels/) and load each kernel, one nvcc
     each, all started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -102,10 +112,56 @@ def _build_kernels(stems) -> None:
     t0 = time.time()
     with ThreadPoolExecutor(len(stems)) as pool:
         list(pool.map(build.load, stems))
-    print(f"kernels: {', '.join(stems)} ready in {time.time() - t0:.1f}s")
+    if log:
+        print(f"kernels: {', '.join(stems)} ready in {time.time() - t0:.1f}s")
 
 
-def _run_mapping(args, dev) -> int:
+def _send_frame(mesh, preloaded, bboxes, max_bboxes: int) -> None:
+    """Rank 0's half of a frame's broadcast: a header (1, box count), the
+    padded points with the mask as a fourth column, and the boxes; with
+    `preloaded=None`, the end header (0, 0)."""
+    import torch
+
+    from .parallel.collectives import broadcast
+
+    nb = 0 if bboxes is None else min(len(bboxes), max_bboxes)
+    broadcast(torch.tensor([int(preloaded is not None), nb], device=mesh.device), mesh)
+    if preloaded is None:
+        return
+    pts, msk = preloaded
+    broadcast(torch.cat([pts, msk[:, None].to(torch.float32)], dim=1), mesh)
+    if nb:
+        boxes = torch.zeros((max_bboxes, 8), dtype=torch.float32)
+        boxes[:nb] = torch.as_tensor(np.asarray(bboxes, np.float32)[:nb])
+        broadcast(boxes.to(mesh.device), mesh)
+
+
+def _follow_frames(fe, mesh, raw_capacity: int, max_bboxes: int) -> None:
+    """A rank other than 0: track every frame rank 0 broadcasts, until the
+    end header."""
+    import torch
+
+    from .parallel.collectives import broadcast
+
+    dev = mesh.device
+    while True:
+        more, nb = broadcast(torch.zeros(2, dtype=torch.int64, device=dev), mesh).tolist()
+        if not more:
+            return
+        buf = broadcast(torch.empty((raw_capacity, 4), dtype=torch.float32, device=dev), mesh)
+        boxes = None
+        if nb:
+            boxes = broadcast(torch.empty((max_bboxes, 8), dtype=torch.float32, device=dev), mesh)
+            boxes = boxes[:nb].cpu().numpy()
+        fe.update(None, bboxes=boxes, preloaded=(buf[:, :3].contiguous(), buf[:, 3] > 0.5))
+
+
+def _mapping_rank(mesh, args) -> int:
+    """One rank of `mapping --mesh-devices N`."""
+    return _run_mapping(args, mesh.device, mesh)
+
+
+def _run_mapping(args, dev, mesh=None) -> int:
     import json
 
     from .config import load_config
@@ -114,20 +170,26 @@ def _run_mapping(args, dev) -> int:
     from .pipeline import BackEnd, FrontEnd, LoopClosing, Viewer
     from .utils.watchdog import RunHealth
 
+    lead = mesh is None or mesh.rank == 0
     cfg = load_config(args.config)
     resume = bool(getattr(args, "resume", False))
     aloam = getattr(args, "front_end", "ndt") == "aloam"
     front_ndt = [] if aloam else [cfg.front_end.ndt]
-    _build_kernels(_path_kernels(front_ndt + [cfg.loop_closing.ndt], dev, aloam=aloam))
-    store = KeyframeStore(args.out, resume=resume)
+    stems = set(_path_kernels(front_ndt, dev, aloam=aloam, sharded=mesh is not None))
+    if lead:
+        stems |= set(_path_kernels([cfg.loop_closing.ndt], dev))
+    _build_kernels(sorted(stems), log=lead)
+    # ranks other than 0 only read a resumed store, never write or clear it
+    store = KeyframeStore(args.out, resume=resume) if lead or resume else None
     if aloam:
         fe = _AloamFrontEnd(capacity=65536 if getattr(args, "synthetic", None) else 131072, device=dev)
     else:
-        fe = FrontEnd(cfg.front_end, device=dev)
-    be = BackEnd(cfg.back_end, store=store, device=dev)
-    lc = LoopClosing(cfg.loop_closing, store=store, data_path=args.out, device=dev)
-    viewer = Viewer(cfg.viewer, store, device=dev)
-    health = RunHealth()
+        fe = FrontEnd(cfg.front_end, device=dev, mesh=mesh)
+    if lead:
+        be = BackEnd(cfg.back_end, store=store, device=dev)
+        lc = LoopClosing(cfg.loop_closing, store=store, data_path=args.out, device=dev)
+        viewer = Viewer(cfg.viewer, store, device=dev)
+        health = RunHealth()
 
     # --- session resume (SURVEY §5.3/§5.4): rebuild tracking + graph state
     # from the store and continue where the interrupted run stopped
@@ -141,15 +203,17 @@ def _run_mapping(args, dev) -> int:
         o2m = progress.get("odom_to_map")
         M = np.eye(4, dtype=np.float32) if o2m is None else np.asarray(o2m, np.float32)
         Minv = np.linalg.inv(M).astype(np.float32)
-        n_kf = be.restore_from_store(store, odom_to_map=M)
-        # replaying LoopClosing over the stored keyframes rebuilds SC state
-        # and re-detects the loops the original run found
-        for k in range(n_kf):
-            rec = store.load(k)
-            loop = lc.update(k, rec["pose"], gnss_position=rec.get("gnss"))
-            if loop is not None:
-                be.insert_loop_pose(loop.index0, loop.index1, loop.relative_pose)
-            viewer.update_with_new_key_frame(k, rec["pose"])
+        n_kf = len(store)
+        if lead:
+            be.restore_from_store(store, odom_to_map=M)
+            # replaying LoopClosing over the stored keyframes rebuilds SC
+            # state and re-detects the loops the original run found
+            for k in range(n_kf):
+                rec = store.load(k)
+                loop = lc.update(k, rec["pose"], gnss_position=rec.get("gnss"))
+                if loop is not None:
+                    be.insert_loop_pose(loop.index0, loop.index1, loop.relative_pose)
+                viewer.update_with_new_key_frame(k, rec["pose"])
         if hasattr(fe, "restore"):
             local_n = getattr(cfg.front_end, "local_frame_num", 20)
             kfs = []
@@ -165,11 +229,15 @@ def _run_mapping(args, dev) -> int:
             )
         skip_frames = int(progress["frames_done"])
         live = f"{store.traj_dir}/laser_odom_live.txt"
-        if os.path.exists(live):
+        if lead and os.path.exists(live):
             from .io.trajectory import read_kitti_trajectory
 
             est = list(read_kitti_trajectory(live))[:skip_frames]
-        print(f"resumed: {n_kf} keyframes, {skip_frames} frames already done")
+        if lead:
+            print(f"resumed: {n_kf} keyframes, {skip_frames} frames already done")
+    if not lead:
+        _follow_frames(fe, mesh, cfg.front_end.raw_capacity, cfg.front_end.max_bboxes)
+        return 0
 
     def _stage(source):
         # the upload happens on the prefetch thread: frame i+1's host-to-
@@ -191,6 +259,8 @@ def _run_mapping(args, dev) -> int:
         open(live_path, "w").close()
     t_start = time.time()
     for i, frame in _skipping(frames):
+        if mesh is not None:
+            _send_frame(mesh, frame["preloaded"], frame.get("bboxes"), cfg.front_end.max_bboxes)
         with health.stage("front_end"):
             pose, _ = fe.update(
                 frame["points"], bboxes=frame.get("bboxes"),
@@ -234,6 +304,8 @@ def _run_mapping(args, dev) -> int:
         })
         if i % 20 == 0:
             print(f"frame {i}: pose {np.asarray(pose)[:3, 3]}")
+    if mesh is not None:
+        _send_frame(mesh, None, None, cfg.front_end.max_bboxes)
 
     stats = be.force_optimize()
     if be.get_optimized_poses() is not None:
@@ -248,6 +320,31 @@ def _run_mapping(args, dev) -> int:
         write_kitti_trajectory(f"{store.traj_dir}/ground_truth.txt", np.stack(gt))
         print(f"ATE vs ground truth: {ate_rmse(np.stack(est), np.stack(gt)):.3f} m")
     return 0
+
+
+def _run_mapping_mesh(parser, args) -> int:
+    """`mapping --mesh-devices N`: start N ranks of the mapping run and
+    return rank 0's exit code. On the card (no --device, or --device cuda)
+    rank r runs on cuda:r under NCCL; another --device puts every rank
+    there under gloo. Exits 2 when the cards are fewer than N, and on
+    --device cuda:K, which names one card for N ranks."""
+    import torch
+
+    from .parallel.launch import launch
+
+    n = args.mesh_devices
+    if args.front_end == "aloam":
+        parser.error("--mesh-devices shards the NDT front end's alignments; --front-end aloam has no sharded form")
+    dev = torch.device(args.device or "cuda")
+    if dev.type == "cuda":
+        if dev.index is not None:
+            parser.error(f"--mesh-devices {n} runs rank r on cuda:r; --device {args.device} names one card "
+                         f"(pass --device cuda or leave it out)")
+        have = torch.cuda.device_count()
+        if have < n:
+            print(f"lidar_slam_tpu_torch: --mesh-devices {n} needs {n} CUDA cards, found {have}", file=sys.stderr)
+            return 2
+    return launch(_mapping_rank, n, args=(args,), device=None if dev.type == "cuda" else args.device, timeout=None)
 
 
 def _run_matching(args, dev) -> int:
@@ -423,8 +520,8 @@ def main(argv=None) -> int:
         "--mesh-devices",
         type=int,
         default=0,
-        help="shard per-frame NDT reductions over N local devices (0 = off); "
-             "not ported yet (ROADMAP A.7, parallel/): N > 1 exits with an error",
+        help="shard per-frame NDT reductions over N ranks (0 = off): rank r on CUDA card r "
+             "(NCCL), or every rank on the CPU with --device cpu (gloo)",
     )
     mp.add_argument(
         "--front-end", dest="front_end", choices=["ndt", "aloam"], default="ndt",
@@ -457,9 +554,7 @@ def main(argv=None) -> int:
     if not (args.kitti_raw or args.kitti_odometry or args.synthetic):
         p.error(f"{args.cmd} needs --kitti-raw, --kitti-odometry or --synthetic N")
     if args.cmd == "mapping" and args.mesh_devices > 1:
-        print(f"lidar_slam_tpu_torch: --mesh-devices {args.mesh_devices} is not ported yet "
-              "(ROADMAP A.7, parallel/)", file=sys.stderr)
-        return 2
+        return _run_mapping_mesh(p, args)
     from . import device
 
     try:

@@ -240,12 +240,15 @@ def _solve_dense(asm, lam_lm, b):
     return torch.where(info == 0, x, torch.nan).reshape(n, 6)
 
 
-def _solve_pcg(asm, lam_lm, b, cfg: GraphOptimizerConfig):
+def _solve_pcg(asm, lam_lm, b, cfg: GraphOptimizerConfig, reduce=None):
     """Block-Jacobi preconditioned CG on the matrix-free operator: the JAX
     package's while-loop, run for its `pcg_iters` steps with the state
     frozen once its condition (relative residual above pcg_tol) fails: no
-    host read on any device."""
-    D = _diag_blocks(asm) + (lam_lm + 1e-8) * torch.eye(6, device=b.device)
+    host read on any device. `reduce` completes the node sums of a shard
+    of the edges (the edge-sharded solve's all_sum), as the JAX sharded
+    solve psums the diagonal blocks and each matvec."""
+    reduce = reduce or (lambda t: t)
+    D = reduce(_diag_blocks(asm)) + (lam_lm + 1e-8) * torch.eye(6, device=b.device)
     Dinv = torch.linalg.inv_ex(D).inverse
     free = asm["free"][:, None]
 
@@ -259,7 +262,8 @@ def _solve_pcg(asm, lam_lm, b, cfg: GraphOptimizerConfig):
     b2 = torch.clamp(torch.sum(b * b), min=1e-30)
     for _ in range(cfg.pcg_iters):
         active = torch.sum(r * r) / b2 > cfg.pcg_tol**2
-        Ap = _matvec(asm, lam_lm, p)
+        # (H p) summed over the shards, then the damping: (H + lam I) p
+        Ap = reduce(_matvec(asm, 0.0, p)) + lam_lm * p * free
         alpha = rz / torch.clamp(torch.sum(p * Ap), min=1e-30)
         x_new = x + alpha * p
         r_new = r - alpha * Ap
@@ -290,9 +294,29 @@ def optimize_pose_graph(
     """Levenberg-Marquardt with variable lambda (g2o `lm_var` semantics).
     Returns (optimized graph on its device, stats as host numbers). One
     host read per LM iteration: the done flag, with chi2 and lambda."""
-    chi2_0 = graph_chi2(graph, cfg)
     dense = uses_dense(cfg, graph.poses.shape[0])
-    poses, chi2 = graph.poses, chi2_0
+
+    def step(poses, lam):
+        asm = _assemble(dataclasses.replace(graph, poses=poses), cfg)
+        b = _gradient(asm)
+        return _solve_dense(asm, lam, b) if dense else _solve_pcg(asm, lam, b, cfg)
+
+    poses, stats = levenberg_marquardt(
+        graph.poses, graph.node_valid & ~graph.node_fixed, step,
+        lambda poses: graph_chi2(dataclasses.replace(graph, poses=poses), cfg), cfg,
+    )
+    return dataclasses.replace(graph, poses=poses), stats
+
+
+def levenberg_marquardt(poses, free, step, chi2_of, cfg: GraphOptimizerConfig):
+    """The LM loop shared by every pose-graph solver: `step(poses, lam)`
+    gives the update [N, 6] of the damped system, `chi2_of(poses)` the
+    total chi2 (0-dim, on the device); a step is kept if chi2 falls (lambda
+    / factor), else dropped (lambda * factor), until a small relative change
+    after a kept step, lambda above 1e6 or max_iterations. One host read an
+    iteration. Returns (poses, stats as host numbers)."""
+    chi2_0 = chi2_of(poses)
+    chi2 = chi2_0
     lam = torch.full((), cfg.lm_lambda_init, dtype=torch.float32, device=chi2.device)
     done = torch.zeros((), dtype=torch.bool, device=chi2.device)
 
@@ -301,11 +325,8 @@ def optimize_pose_graph(
 
     it, host = 0, None
     while it < cfg.max_iterations:
-        asm = _assemble(dataclasses.replace(graph, poses=poses), cfg)
-        b = _gradient(asm)
-        delta = _solve_dense(asm, lam, b) if dense else _solve_pcg(asm, lam, b, cfg)
-        new_poses = _apply_update(poses, delta, asm["free"])
-        new_chi2 = graph_chi2(dataclasses.replace(graph, poses=new_poses), cfg)
+        new_poses = _apply_update(poses, step(poses, lam), free)
+        new_chi2 = chi2_of(new_poses)
         accept = new_chi2 < chi2
         chi2_out = torch.where(accept, new_chi2, chi2)
         lam_out = torch.where(accept, lam / cfg.lm_lambda_factor, lam * cfg.lm_lambda_factor)
@@ -320,7 +341,7 @@ def optimize_pose_graph(
     if host is None:
         host = read()
     stats = {"chi2_before": float(host[1]), "chi2_after": float(host[2]), "iterations": it, "lambda": float(host[3])}
-    return dataclasses.replace(graph, poses=poses), stats
+    return poses, stats
 
 
 def _grow(arr: np.ndarray, fill=None) -> np.ndarray:

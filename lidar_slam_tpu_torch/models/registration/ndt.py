@@ -356,6 +356,27 @@ def _cov_from_moments(rel, pp, n):
     return cov * ((n - 1.0) / n)[:, None, None]
 
 
+def _moments_from_sums(origin, count_raw, psum, ppsum, wsum, dims, resolution: float, vid_start: int = 0):
+    """Per-voxel (count, mean, cov, staticvalue) from running moment sums,
+    strictly elementwise, so it runs on a voxel slab given that slab's rows
+    and its first flat voxel id `vid_start` (the sharded map build,
+    parallel/sharded_ndt.py). The same expressions as finalize_ndt_sums'
+    compact rows, so a voxel's values do not depend on where it is computed."""
+    res = float(resolution)
+    dev = count_raw.device
+    count = torch.clamp(count_raw, min=0.0)
+    count = torch.where(count < 0.5, 0.0, count)
+    n = torch.clamp(count, min=1.0)
+    rel = psum / n[:, None]
+    idx = vid_start + torch.arange(count.shape[0], dtype=torch.int32, device=dev)
+    cz = idx % dims[2]
+    cy = (idx // dims[2]) % dims[1]
+    cx = idx // (dims[1] * dims[2])
+    oc = _to(_origin_cells(_host_origin(origin), res), dev)
+    corner = (oc[None, :] + torch.stack([cx, cy, cz], dim=-1)).to(torch.float32) * res
+    return count, corner + rel, _cov_from_moments(rel, ppsum / n[:, None], n), wsum / n
+
+
 def finalize_ndt_sums(sums: NDTMapSums, config: NDTConfig) -> NDTMap:
     """Condition the running sums into an NDTMap, compact-first: the dense
     work is a count clean-up, one cumsum and a searchsorted; moments,
@@ -452,6 +473,48 @@ def build_ndt_map(cloud: PointCloud, config: NDTConfig, origin=None) -> NDTMap:
     sums = empty_ndt_sums(origin, config, device=pts.device)
     sums = scatter_to_sums(sums, pts, mask, cloud.get_weights())
     return finalize_ndt_sums(sums, config)
+
+
+def _pack_rows(origin, rows, dims, config: NDTConfig, icov_lower=None) -> NDTMap:
+    """The NDTMap of conditioned dense rows [V, 16] (`_condition_rows` of
+    every voxel): the occupied voxels (count >= min_points_per_voxel, at
+    most max_compact_voxels of them) packed in ascending flat id, as
+    finalize_ndt_sums packs its compact rows; a degenerate occupied voxel
+    keeps its row with a 0 valid flag. With config.dense_stats the dense
+    views come from the rows themselves (count, mean, staticvalue, valid and
+    the icov upper triangle; `icov_lower` [V, 3] gives the (1,0), (2,0),
+    (2,1) entries). The sharded map build's global step."""
+    v = dims[0] * dims[1] * dims[2]
+    cap = config.max_compact_voxels
+    dev = rows.device
+    count = rows[:, 11]
+    occupied = count >= float(config.min_points_per_voxel)
+    csum = torch.cumsum(occupied.to(torch.int32), dim=0, dtype=torch.int32)
+    pos = csum - 1
+    in_cap = occupied & (pos < cap)
+    index = torch.where(in_cap, pos, cap).to(torch.int32)
+    j = torch.arange(cap + 1, dtype=torch.int32, device=dev)
+    keys = torch.searchsorted(csum, j + 1, side="left", out_int32=True)
+    keys = torch.where(j < torch.clamp(csum[-1], max=cap), keys, -1)
+    chas = keys >= 0
+    packed = torch.where(chas[:, None], rows[torch.clamp(keys, min=0).long()], 0.0)
+    packed[cap] = 0.0  # zero sentinel row (valid flag 0)
+    if config.dense_stats:
+        valid = (rows[:, 10] > 0.5) & in_cap
+        u, lo = rows[:, 4:10], icov_lower
+        icov = torch.stack([u[:, 0], u[:, 1], u[:, 2], lo[:, 0], u[:, 3], u[:, 4], lo[:, 1], lo[:, 2], u[:, 5]],
+                           dim=-1).reshape(v, 3, 3)
+        icov = torch.where(valid[:, None, None], icov, 0.0)
+        mean, staticvalue = rows[:, 0:3], rows[:, 3]
+    else:
+        mean = torch.zeros((1, 3), dtype=torch.float32, device=dev)
+        staticvalue = torch.zeros(1, dtype=torch.float32, device=dev)
+        icov = torch.zeros((1, 3, 3), dtype=torch.float32, device=dev)
+        valid = torch.zeros(1, dtype=torch.bool, device=dev)
+    return NDTMap(
+        origin=_host_origin(origin), count=count, mean=mean, icov=icov, staticvalue=staticvalue, valid=valid,
+        index=index, packed=packed.contiguous(), keys=keys, dims=tuple(dims), resolution=config.resolution,
+    )
 
 
 def _condition_rows(count, mean, cov, staticvalue, config: NDTConfig):
@@ -885,6 +948,23 @@ def ndt_align_host_loop(
         return unpack_results(sums.cpu().numpy())
 
     return newton_align(derivs, init_pose, config, source.num_valid())
+
+
+def sort_points_by_vid(ndt_map: NDTMap, pts, mask, w, init_pose):
+    """Points, mask and weights reordered by each point's voxel id under
+    `init_pose` [4, 4] (masked points last), stably: the JAX package sorts
+    so that its TPU kernel's tiles are spatially coherent. The port's
+    kernels gather directly and need no order; ndt_align and the sharded
+    paths do not sort."""
+    dev = pts.device
+    T0 = _to(np.array(init_pose, _f32), dev)
+    xp0 = pts @ T0[:3, :3].T + T0[:3, 3]
+    cell0 = torch.floor((xp0 - _to(ndt_map.origin, dev)) / ndt_map.resolution).to(torch.int32)
+    hi = _to(np.asarray(ndt_map.dims, np.int32) - 1, dev)
+    cell0 = torch.minimum(torch.clamp(cell0, min=0), hi)
+    vid0 = torch.where(mask, _flat_vid(cell0, ndt_map.dims), 2**30)
+    order = torch.sort(vid0, stable=True).indices
+    return pts[order], mask[order], w[order]
 
 
 def ndt_fitness_score(ndt_map: NDTMap, source: PointCloud, pose, config: NDTConfig, max_range: float = 4.0):

@@ -19,12 +19,16 @@ and keyframe buffers live on the device. Incremental map maintenance is
 deferred by one frame, as in the JAX package. `FrontEnd.restore` rebuilds
 the tracking state from stored keyframes (session resume).
 
-Not ported yet: `mesh=` sharding.
+With `mesh=` (FrontEnd, front_end_drive) every alignment is point-sharded
+over the mesh's ranks (parallel/sharded_ndt.py: a K1 launch an evaluation
+on each rank, the sums meeting in one collective) while the map
+maintenance runs replicated on every rank, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -43,6 +47,7 @@ from ..models.registration import (
 )
 from ..models.registration.ndt import _to
 from ..ops.pointcloud import PointCloud, finite_mask, rotated_box_mask, voxel_downsample
+from ..parallel.sharded_ndt import sharded_ndt_align
 
 _f32 = np.float32
 
@@ -90,6 +95,12 @@ def coarse_tracking_cfg(c: NDTConfig) -> NDTConfig:
     )
 
 
+def _aligner(mesh):
+    """ndt_align, or its point-sharded form over `mesh` when one is given
+    (the production multi-rank registration path, not a demo beside it)."""
+    return ndt_align if mesh is None else functools.partial(sharded_ndt_align, mesh=mesh)
+
+
 def _track_step(
     fine_map,
     coarse_map,
@@ -100,14 +111,17 @@ def _track_step(
     leaf: float,
     fine_cfg: NDTConfig,
     coarse_cfg: Optional[NDTConfig],
+    mesh=None,
 ):
     """One frame's tracking: preprocess -> optional coarse align -> fine
-    align. Returns (frame points, frame mask, pose [4, 4] host, unresolved)."""
+    align (sharded over `mesh` when given). Returns (frame points, frame
+    mask, pose [4, 4] host, unresolved)."""
+    align = _aligner(mesh)
     frame = _preprocess(points, mask, capacity, leaf)
     guess = predict
     if coarse_cfg is not None:
-        guess = ndt_align(coarse_map, frame, guess, coarse_cfg).pose
-    r = ndt_align(fine_map, frame, guess, fine_cfg)
+        guess = align(coarse_map, frame, guess, coarse_cfg).pose
+    r = align(fine_map, frame, guess, fine_cfg)
     return frame.points, frame.mask, r.pose, r.unresolved
 
 
@@ -353,13 +367,17 @@ def front_end_drive(
     cfg: FrontEndConfig,
     bboxes_seq=None,  # [T, B, 8] sensor-frame detector boxes
     bbox_valid_seq=None,  # [T, B] bool
+    mesh=None,  # parallel.Mesh: shard every alignment's points over its ranks
 ):
     """Whole-sequence scan-to-map odometry: preprocess -> coarse-to-fine
     align -> motion-model update -> keyframe insertion with static-point
     weighting and (deferred) incremental map maintenance, frame after frame.
+    With `mesh` each alignment is point-sharded over the ranks and the map
+    maintenance runs replicated on each.
 
     The input state is not modified. Returns (state, poses [T, 4, 4] host,
     is_kf [T] bool, unresolved [T])."""
+    align = _aligner(mesh)
     fine_cfg = dataclasses.replace(cfg.ndt, dense_stats=False)
     coarse_cfg = coarse_tracking_cfg(cfg.ndt)
     use_bboxes = bboxes_seq is not None
@@ -384,8 +402,8 @@ def front_end_drive(
         else:
             guess = st.predict_pose
             if cfg.coarse_to_fine:
-                guess = ndt_align(st.coarse_map, frame, guess, coarse_cfg).pose
-            r = ndt_align(st.fine_map, frame, guess, fine_cfg)
+                guess = align(st.coarse_map, frame, guess, coarse_cfg).pose
+            r = align(st.fine_map, frame, guess, fine_cfg)
             pose, unresolved = r.pose, r.unresolved
 
         if st.pend_valid:  # the previous keyframe's deferred maintenance
@@ -469,11 +487,15 @@ def front_end_drive(
 
 
 class FrontEnd:
-    """Stateful host wrapper (the reference's FrontEnd::Update API)."""
+    """Stateful host wrapper (the reference's FrontEnd::Update API). With
+    `mesh` (a parallel.Mesh; `mapping --mesh-devices N`) every alignment is
+    point-sharded over its ranks, each rank updating its own replica of the
+    tracking state from the same scans; the device defaults to the mesh's."""
 
-    def __init__(self, config: FrontEndConfig = FrontEndConfig(), device=None):
+    def __init__(self, config: FrontEndConfig = FrontEndConfig(), device=None, mesh=None):
         self.cfg = config
-        self.device = _default_device(device)
+        self.mesh = mesh
+        self.device = _default_device(mesh.device if device is None and mesh is not None else device)
         dev = self.device
         k = config.local_frame_num
         p = config.keyframe_capacity
@@ -551,7 +573,7 @@ class FrontEnd:
         # the previous keyframe's deferred maintenance
         f_pts, f_mask, pose, unresolved = _track_step(
             self.ndt_map, coarse_map, pts_fixed, msk_fixed, self.predict_pose,
-            cfg.frame_capacity, cfg.frame_leaf, cfg.ndt, coarse_cfg,
+            cfg.frame_capacity, cfg.frame_leaf, cfg.ndt, coarse_cfg, self.mesh,
         )
         pend = self._pending_update
         if pend is not None:

@@ -103,6 +103,7 @@ def runs(tmp_path_factory):
 
         r[tag] = mapping(root / tag)
         r[tag + "_killed"] = mapping(root / f"{tag}_killed", fail=True)
+        r[tag + "_mesh"] = mapping(root / f"{tag}_mesh", "--mesh-devices", "2")
     for tag, cli in (("j", jcli), ("t", tcli)):
         for src in ("j", "t"):
             out = root / f"{src}_resumed_by_{tag}"
@@ -111,6 +112,10 @@ def runs(tmp_path_factory):
                                            "--out", str(out), "--resume"))
             r[f"{src}_map_by_{tag}"] = _main(cli, _argv(cli, "matching", "--synthetic", "4", "--config", str(cfg),
                                                         "--map", str(root / src)))
+    out = root / "t_killed_resumed_on_mesh"
+    shutil.copytree(root / "t_killed", out)
+    r[out.name] = _main(tcli, _argv(tcli, "mapping", "--synthetic", str(N_FRAMES), "--config", str(cfg),
+                                    "--out", str(out), "--resume", "--mesh-devices", "2"))
     r["root"] = root
     return r
 
@@ -163,6 +168,29 @@ def test_mapping_matches_reference(runs):
     assert sorted(os.listdir(os.path.join(root, "t", "map"))) == sorted(os.listdir(os.path.join(root, "j", "map")))
     assert sorted(os.listdir(os.path.join(root, "t", "trajectory"))) == sorted(
         os.listdir(os.path.join(root, "j", "trajectory")))
+
+
+def test_mesh_mapping_matches_reference(runs):
+    """`mapping --mesh-devices 2`: the port's two gloo ranks on the CPU
+    (rank 0 writes every file) against the JAX package's run on two
+    devices and against the port's single-rank run: the same keyframes,
+    the odometry and the optimized keyframes within FRONT_END_TOL. The
+    port's killed run resumed on two ranks (every rank restores its front
+    end from the store): within RESUME_ATE of the uninterrupted run."""
+    root = runs["root"]
+    assert runs["j_mesh"][0] == runs["t_mesh"][0] == 0
+    odo = _odom(root, "t_mesh")
+    assert odo.shape == (N_FRAMES, 4, 4)
+    for ref in ("j_mesh", "t"):
+        np.testing.assert_allclose(odo, _odom(root, ref), atol=FRONT_END_TOL)
+        np.testing.assert_allclose(_odom(root, "t_mesh", "optimized.txt"), _odom(root, ref, "optimized.txt"),
+                                   atol=FRONT_END_TOL)
+        assert [t for t, _ in _keyframes(root, "t_mesh")] == [t for t, _ in _keyframes(root, ref)]
+    assert runs["t_killed_resumed_on_mesh"][0] == 0
+    resumed = _odom(root, "t_killed_resumed_on_mesh")
+    assert len(resumed) == N_FRAMES
+    np.testing.assert_array_equal(resumed[:KILL_AFTER], _odom(root, "t")[:KILL_AFTER])
+    assert ate_rmse(resumed, _odom(root, "t"), align=False) < RESUME_ATE
 
 
 @pytest.mark.parametrize("src", ["j", "t"])
@@ -227,8 +255,16 @@ def test_inspect_and_refusals(tmp_path, capsys):
     assert out.count("frame ") == 3 and "inspect: OK" in out
     assert tcli.main(["bench"]) == 2
     assert "ROADMAP A.1" in capsys.readouterr().err
-    assert tcli.main(["mapping", "--synthetic", "3", "--mesh-devices", "2", "--device", "cpu"]) == 2
-    assert "parallel/" in capsys.readouterr().err
+    # more cards asked for than there are: exit 2, naming both counts
+    n = max(2, torch.cuda.device_count() + 1)
+    assert tcli.main(["mapping", "--synthetic", "3", "--mesh-devices", str(n)]) == 2
+    assert f"needs {n} CUDA cards, found {torch.cuda.device_count()}" in capsys.readouterr().err
+    with pytest.raises(SystemExit) as e:  # one named card for two ranks
+        tcli.main(["mapping", "--synthetic", "3", "--mesh-devices", "2", "--device", "cuda:0"])
+    assert e.value.code == 2 and "names one card" in capsys.readouterr().err
+    assert tcli.main(["mapping", "--synthetic", "3", "--mesh-devices", "2", "--device", "cpu",
+                      "--out", str(tmp_path / "mesh")]) == 0
+    assert len(read_kitti_trajectory(str(tmp_path / "mesh" / "trajectory" / "laser_odom.txt"))) == 3
     with pytest.raises(SystemExit):
         tcli.main(["matching"])  # no frame source
     if not torch.cuda.is_available():

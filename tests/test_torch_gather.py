@@ -143,9 +143,36 @@ def _matching_local_maps():
 NEW_MAPS = {"rebuilt_local_map": _rebuilt_local_maps, "matching_local_map": _matching_local_maps}
 
 
+@functools.lru_cache(maxsize=None)
+def _sharded_maps():
+    """The sharded builders' maps at world 2 (the port on two gloo ranks on
+    the CPU, one launch; JAX on two virtual devices): {"sharded_ndt_map":
+    (JAX map, port map), "sharded_local_map": ...}."""
+    from lidar_slam_tpu import parallel as jpar
+
+    from lidar_slam_tpu_torch.parallel.launch import call_each, launch
+
+    pts = make_scene(30, 60, seed=9)
+    rng = np.random.default_rng(4)
+    kf = (make_scene(32, 64, seed=4).reshape(4, 512, 3), rng.uniform(size=(4, 512)) < 0.9,
+          rng.uniform(0.2, 1.0, (4, 512)).astype(np.float32), np.tile(np.eye(4, dtype=np.float32), (4, 1, 1)),
+          np.arange(4) != 2)
+    kf[3][:, :3, 3] = rng.uniform(-0.5, 0.5, (4, 3))
+    par = "lidar_slam_tpu_torch.parallel.sharded_ndt"
+    tm = launch(call_each, 2, args=([
+        (f"{par}:sharded_build_ndt_map", (TCloud.from_points(pts), ORIGIN, CFG_T), {}),
+        (f"{par}:sharded_build_local_map", (*(torch.as_tensor(a) for a in kf), ORIGIN, CFG_T), {}),
+    ],), device="cpu", timeout=300.0)
+    mesh = jpar.make_mesh(2)
+    jm = (jpar.sharded_build_ndt_map(JCloud.from_points(pts), jnp.asarray(ORIGIN), CFG_J, mesh),
+          jpar.sharded_build_local_map(*(jnp.asarray(a) for a in kf), jnp.asarray(ORIGIN), CFG_J, mesh))
+    return {"sharded_ndt_map": (jm[0], tm[0]), "sharded_local_map": (jm[1], tm[1])}
+
+
 @pytest.mark.parametrize(
     "case",
-    [*CAPS, "loop_submap", *(f"{name}_{level}" for name in NEW_MAPS for level in ("fine", "coarse"))],
+    [*CAPS, "loop_submap", *(f"{name}_{level}" for name in NEW_MAPS for level in ("fine", "coarse")),
+     "sharded_ndt_map", "sharded_local_map"],
 )
 def test_map_keys_ascend_unsigned(case):
     """The port's finalize_ndt_sums keys, the JAX package's from both of its
@@ -153,7 +180,14 @@ def test_map_keys_ascend_unsigned(case):
     and the converted map's: the same keys, in NDTMap's order. The loop
     closure's submap map (downsampled submap, no dense stats), the front
     end's rebuilt local map and Matching's box-cropped map, fine and coarse:
-    the port's keys in that order and equal to the JAX package's."""
+    the port's keys in that order and equal to the JAX package's. The
+    sharded builders' maps at world 2: in that order and equal to the JAX
+    sharded build's."""
+    if case.startswith("sharded_"):
+        jm, tm = _sharded_maps()[case]
+        assert 0 < _assert_map_order(tm.keys.numpy()) < 2048
+        np.testing.assert_array_equal(tm.keys.numpy(), np.asarray(jm.keys))
+        return
     if case == "loop_submap":
         jm, tm = _loop_submap_maps()
         assert 0 < _assert_map_order(tm.keys.numpy()) < 2048
