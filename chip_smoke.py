@@ -7,8 +7,8 @@ Drives the port's paths on the card: tracking, A-LOAM, the mapping back
 half (loop closure, pose-graph optimization, a whole mapping session,
 phases 11-13), map-matching localization, the rebuilt local map with
 session restore, and the LM solver (phases 15-17), and the command-line
-entry point from KITTI files on disk (phase 18), and the multi-rank layer
-(phase 19). NDT scan-to-map tracking
+entry point from KITTI files on disk (phase 18), the multi-rank layer
+(phase 19) and the benchmark entry point (phase 20). NDT scan-to-map tracking
 runs at
 the KITTI HDL-64 operating point of bench.py (raw scans padded to 131 072
 points, frames of <= 32 768 points, 1 m NDT voxels on a 256 x 256 x 64
@@ -24,6 +24,8 @@ grid) on bench.py's aloam_leg world and trajectory, at bench.py's density
      nvcc each, all at once, and logs their registers and spills;
   3. K1 against its plain PyTorch version on the card, direct7 and
      radius27, with bench.py's parity tolerances, and both device times;
+     K1 given the pose on the card (the bench's evaluation probe: the
+     kernel computes the pose coefficients) against the plain version too;
   4. ndt_newton (the whole clamped-Newton alignment in one launch) against
      its plain version on a few alignments of the drive's frames: the
      kernel's score, gradient and Hessian at its final pose against the
@@ -85,7 +87,7 @@ grid) on bench.py's aloam_leg world and trajectory, at bench.py's density
      `--session-out FILE` both runs' odometry, keyframes, loop edges and
      optimized poses are saved for session_witness.py, which replays them
      through the JAX back end;
- 14. the kernels line (printed last, after phases 15-18): every kernel
+ 14. the kernels line (printed last, after phases 15-20): every kernel
      with its launches on its paths, its device time beside its plain
      version's and its bound (the larger of the bytes it must move over
      3.35 TB/s and its fp32 FLOPs over 67 TFLOP/s, counted from this run's
@@ -94,7 +96,7 @@ grid) on bench.py's aloam_leg world and trajectory, at bench.py's density
      session, matching and rebuilt-map paths too, its `_loop` fields are
      phase 11's and its `_matching` fields phase 15's; K1's count the LM
      alignments of phase 17 and the sharded paths of phase 19 beside the
-     host-loop drives;
+     host-loop drives; every kernel's count adds the bench's (phase 20);
  15. map-matching localization at MatchingConfig() widths (a 224 x 224 x
      48 radius27 fine map, a 112 x 112 x 24 coarse one, GPF ground removal)
      on bench.py's matching_leg world at DENSE, against the world surface
@@ -142,9 +144,17 @@ grid) on bench.py's aloam_leg world and trajectory, at bench.py's density
      2 048-node circle and the Schur solve on its 366-node one against the
      single-rank optimizer; front_end_drive(mesh=) over phase 6's frames
      against the single-rank drive and the truth; the dry run
-     (parallel/dryrun.py). Wall ms of each beside the unsharded function's.
+     (parallel/dryrun.py). Wall ms of each beside the unsharded function's;
+ 20. the benchmark entry point (bench_phase): `python3 -m
+     lidar_slam_tpu_torch bench` in its own process: exit 0, bench.py's
+     metric lines each once with the card's name and power limit, the
+     headlines over the port's CPU path, every leg's launch counts as its
+     path must launch them (one ndt_newton launch a scan-match frame, K1 in
+     the parity gate and the evaluation probe, K2 10 times an A-LOAM sweep,
+     two ndt_newton launches a matching frame); its launches join the
+     kernels line's counts.
 
-Phases 11-19 print the card's name and power limit on each summary line.
+Phases 11-20 print the card's name and power limit on each summary line.
 
 Any failed check ends the run with a non-zero exit code. The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -164,9 +174,20 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-RAW_CAP = 131072
-FRAME_CAP = 32768
-N_FRAMES = 20
+# the workload, the NDT bound's count and the loop and pose-graph set-ups are the bench's
+# (lidar_slam_tpu_torch/bench.py, bench.py's legs on the card)
+from lidar_slam_tpu_torch.bench import (
+    FRAME_CAP,
+    N_FRAMES,
+    RAW_CAP,
+    bound,
+    build_workload,
+    circle_graph,
+    device_label,
+    loop_config,
+    ndt_work,
+)
+
 ALOAM_SWEEPS = 12
 DENSE = 10000.0  # the aloam_leg world at a real HDL-64 sweep density (~106k returns in 131 072 rows)
 ALOAM_DENSITIES = (30.0, DENSE)  # bench.py's density, kept for continuity, and DENSE
@@ -218,15 +239,7 @@ MESH_FRAMES, MESH_PCG_ITERS, MESH_SCHUR_ITERS = 4, 5, 20
 MAP_TOL = dict(count=1e-5, mean=1e-4)
 LAYOUT_TOL, SCHUR_TOL = 8e-2, 0.05
 MESH_TIMEOUT = 600.0  # s a launch of phase 19's ranks
-# One H100 SXM (the data sheet): HBM bytes/s and fp32 FLOP/s outside the tensor cores
-PEAK_BYTES = 3.35e12
-PEAK_FP32 = 67e12
-# fp32 FLOPs the NDT reduction needs (an FMA counts 2): each valid point is transformed
-# and its cell found once (the kernels redo that for each stencil offset, which the
-# function does not need; the neighbour's index is integer work); a (point, voxel) pair
-# on a valid voxel takes the Mahalanobis term (and the radius27 gate); an accepted pair
-# adds the score, gradient and 21 Hessian terms
-FLOPS_POINT, FLOPS_VALID, FLOPS_GATE, FLOPS_ACCEPTED = 24, 37, 5, 413
+BENCH_TIMEOUT = 600.0  # s, phase 20's `python3 -m lidar_slam_tpu_torch bench`
 FLOPS_KNN_CANDIDATE = 8  # d2 = (dx*dx + dy*dy) + dz*dz: 3 sub, 3 mul, 2 add
 
 
@@ -258,92 +271,6 @@ def counting_syncs():
         finally:
             torch.cuda.set_sync_debug_mode("default")
     count.append(sum("called a synchronizing CUDA operation" in str(w.message) for w in caught))
-
-
-def bound(n_bytes, flops):
-    """(bound ms, what sets it): the larger of bytes over the HBM rate and
-    fp32 FLOPs over the fp32 peak."""
-    b, f = n_bytes / PEAK_BYTES * 1e3, flops / PEAK_FP32 * 1e3
-    return (b, "bytes") if b >= f else (f, "operations")
-
-
-def ndt_work(frame, ndt_map, poses, cfg):
-    """Bytes and fp32 FLOPs the NDT reduction needs on these inputs at each
-    pose of `poses` (host [6] arrays), summed: each source row read once
-    (mask; xyz and weight of the valid ones), each index word and stats row
-    (48 B read of 64) touched at any pose once, the pose and the result (at
-    most 48 floats) once; FLOPs per pair as counted in FLOPS_*."""
-    import torch
-
-    from lidar_slam_tpu_torch.ops.cuda import ndt_fused, ndt_newton
-
-    dev = frame.points.device
-    stencil = cfg.stencil
-    d2 = float(np.float32(cfg.gauss_params()[1]))
-    valid = frame.mask & torch.all(torch.isfinite(frame.points), dim=-1)
-    x = frame.points[valid]
-    dims = torch.as_tensor(ndt_map.dims, device=dev)
-    offsets = torch.as_tensor(ndt_fused.STENCIL_OFFSETS[stencil], device=dev)
-    origin = ndt_map.origin.to(dev)
-    flops, vids, rows = 0, [], []
-    for pose in poses:
-        R, t, _, _ = ndt_newton.pose_coefficients(torch.as_tensor(pose, device=dev))
-        xp = x @ R.T + t
-        cell = torch.floor((xp - origin) / ndt_map.resolution).to(torch.int64)
-        cand = torch.minimum(torch.maximum(cell, torch.full_like(cell, -2)), dims + 1)[:, None] + offsets
-        inb = torch.all((cand >= 0) & (cand < dims), dim=-1)
-        vid = ((cand[..., 0] * ndt_map.dims[1] + cand[..., 1]) * ndt_map.dims[2] + cand[..., 2])[inb]
-        row = ndt_map.index[vid].long()
-        pk = ndt_map.packed[row]
-        on_valid = pk[:, 10] > 0.5
-        e = xp[:, None, :].expand(-1, offsets.shape[0], 3)[inb] - pk[:, 0:3]
-        gate = on_valid
-        if stencil == "radius27":
-            gate = gate & (torch.sum(e * e, dim=-1) <= ndt_map.resolution**2)
-        ix = pk[:, 4:10]
-        q = torch.stack([ix[:, 0] * e[:, 0] + ix[:, 1] * e[:, 1] + ix[:, 2] * e[:, 2],
-                         ix[:, 1] * e[:, 0] + ix[:, 3] * e[:, 1] + ix[:, 4] * e[:, 2],
-                         ix[:, 2] * e[:, 0] + ix[:, 4] * e[:, 1] + ix[:, 5] * e[:, 2]], dim=-1)
-        exd = d2 * torch.exp(-0.5 * d2 * torch.sum(q * e, dim=-1))
-        accepted = gate & (exd <= 1.0) & (exd >= 0.0) & torch.isfinite(exd)
-        n_valid_voxel = int(on_valid.sum())
-        flops += (x.shape[0] * FLOPS_POINT + n_valid_voxel * FLOPS_VALID
-                  + (n_valid_voxel * FLOPS_GATE if stencil == "radius27" else 0) + int(accepted.sum()) * FLOPS_ACCEPTED)
-        vids.append(vid)
-        rows.append(row)
-    n_bytes = (frame.mask.numel() + int(valid.sum()) * 16 + torch.unique(torch.cat(vids)).numel() * 4
-               + torch.unique(torch.cat(rows)).numel() * 48 + (6 + 48) * 4)
-    return n_bytes, flops
-
-
-def build_workload(dev):
-    """bench.py:63-95: corridor map cloud (20 keyframes, 0.3 m leaf),
-    20 raw scans padded to RAW_CAP, ground truth, perturbed first guess."""
-    import torch
-
-    from lidar_slam_tpu_torch.io import SyntheticWorld, make_trajectory, simulate_scan
-    from lidar_slam_tpu_torch.ops import PointCloud, voxel_downsample
-
-    world = SyntheticWorld.corridor(length=120.0, width=18.0, density=40.0, seed=0)
-    traj = make_trajectory(40, speed=2.0)
-    kf_pts = []
-    for i in range(0, 40, 2):
-        pts, mask, _ = simulate_scan(world, traj[i], max_range=80.0, n_points=RAW_CAP, seed=i, noise=0.015)
-        kf_pts.append((pts[mask] @ traj[i][:3, :3].T + traj[i][:3, 3])[:16384])
-    map_cloud = PointCloud.from_points(np.concatenate(kf_pts).astype(np.float32), device=dev)
-    map_cloud = voxel_downsample(map_cloud, 0.3, out_capacity=map_cloud.capacity)
-
-    all_pts = np.zeros((N_FRAMES, RAW_CAP, 3), np.float32)
-    all_msk = np.zeros((N_FRAMES, RAW_CAP), bool)
-    for i in range(N_FRAMES):
-        pts, mask, _ = simulate_scan(
-            world, traj[10 + i], max_range=80.0, n_points=RAW_CAP, seed=1000 + i, noise=0.02
-        )
-        all_pts[i], all_msk[i] = pts, mask
-    gt = traj[10:10 + N_FRAMES]
-    guess0 = gt[0].copy()
-    guess0[:3, 3] += np.random.default_rng(7).normal(0, 0.3, 3)
-    return map_cloud, torch.from_numpy(all_pts).to(dev), torch.from_numpy(all_msk).to(dev), gt, guess0
 
 
 def device_ms(fn, reps=30):
@@ -387,10 +314,15 @@ def device_events(fn, reps=10, tries=3):
 
 def kernel_parity(workload, cfg, stencil):
     """Phase 3 for one stencil: K1 vs the plain version at the operating
-    point (bench.py:164-191). Returns (max_abs_err, kernel ms, plain ms,
-    bound ms, what sets the bound)."""
+    point (bench.py:164-191), K1 given the pose on the card (the bench's
+    evaluation probe: the kernel computes the pose coefficients) against
+    the plain version too. Returns (max_abs_err, kernel ms, plain ms, bound
+    ms, what sets the bound, the device-pose launch's max_abs_err)."""
+    import torch
+
     from lidar_slam_tpu_torch.models.registration import build_ndt_map
     from lidar_slam_tpu_torch.models.registration.ndt import _reduce
+    from lidar_slam_tpu_torch.ops.cuda.ndt_fused import ndt_reduce_fused
     from lidar_slam_tpu_torch.pipeline.front_end import _preprocess
 
     map_cloud, all_pts, all_msk, _, guess0 = workload
@@ -404,21 +336,28 @@ def kernel_parity(workload, cfg, stencil):
 
     k = _reduce(ndt_map, pts, msk, w, pose6, cfg).cpu().numpy()
     p = _reduce(ndt_map, pts, msk, w, pose6, plain_cfg).cpu().numpy()
-    check(k[28] == 0.0, f"{stencil}: unresolved = {k[28]}")
-    for name, sl in (("score", slice(0, 1)), ("grad", slice(1, 7)), ("hess", slice(7, 28))):
-        tol = TOL[name]
-        bad = np.abs(k[sl] - p[sl]) > tol["atol"] + tol["rtol"] * np.abs(p[sl])
-        check(not bad.any(), f"{stencil} {name}: kernel {k[sl]} vs plain {p[sl]}")
+    d1, d2 = cfg.gauss_params()
+    kd = ndt_reduce_fused(pts, msk, w, ndt_map.index, ndt_map.packed, ndt_map.origin, None, None, None, None,
+                          dims=ndt_map.dims, resolution=ndt_map.resolution, d1=float(np.float32(d1)),
+                          d2=float(np.float32(d2)), stencil=stencil, weight_derivatives=cfg.weight_derivatives,
+                          pose=torch.from_numpy(pose6).to(pts.device)).cpu().numpy()
+    for label, got in (("kernel", k), ("kernel, pose on the card,", kd)):
+        check(got[28] == 0.0, f"{stencil}: {label} unresolved = {got[28]}")
+        for name, sl in (("score", slice(0, 1)), ("grad", slice(1, 7)), ("hess", slice(7, 28))):
+            tol = TOL[name]
+            bad = np.abs(got[sl] - p[sl]) > tol["atol"] + tol["rtol"] * np.abs(p[sl])
+            check(not bad.any(), f"{stencil} {name}: {label} {got[sl]} vs plain {p[sl]}")
     err = float(np.max(np.abs(k[:28] - p[:28])))
+    err_dev = float(np.max(np.abs(kd[:28] - p[:28])))
     ms = device_ms(lambda: _reduce(ndt_map, pts, msk, w, pose6, cfg))
     plain_ms = device_ms(lambda: _reduce(ndt_map, pts, msk, w, pose6, plain_cfg), reps=10)
     n_bytes, flops = ndt_work(frame, ndt_map, [pose6], cfg)
     bound_ms, bound_by = bound(n_bytes, flops)
     log(f"[parity {stencil}] {int(msk.sum())} points x {len(ndt_map.keys)} table rows: "
         f"score {k[0]:.4f} (plain {p[0]:.4f}), |grad| {np.linalg.norm(k[1:7]):.4f}, "
-        f"max |kernel - plain| {err:.3e}; K1 {ms:.4f} ms (one launch), plain {plain_ms:.4f} ms (device, median); "
-        f"bound {bound_ms:.5f} ms ({n_bytes} B, {flops} FLOP: {bound_by})")
-    return err, ms, plain_ms, bound_ms, bound_by
+        f"max |kernel - plain| {err:.3e} (pose on the card: {err_dev:.3e}); K1 {ms:.4f} ms (one launch), plain "
+        f"{plain_ms:.4f} ms (device, median); bound {bound_ms:.5f} ms ({n_bytes} B, {flops} FLOP: {bound_by})")
+    return err, ms, plain_ms, bound_ms, bound_by, err_dev
 
 
 def newton_kw(ndt_map, cfg):
@@ -1095,17 +1034,6 @@ def aloam_drive(dev, traj, frames, label):
     return dt / n * 1e3, pipe
 
 
-def loop_config():
-    """bench.py:821-823 (loop_verify_leg): LoopClosingConfig() with
-    loop_step 1, diff_num 20 and a 20-keyframe Scan Context exclusion: 0.3 m
-    leaves, a 65 536-point submap, a 16 384-point scan, a 160 x 160 x 40 NDT
-    grid, radius27, Scan Context 20 x 60."""
-    from lidar_slam_tpu_torch.models.scan_context import ScanContextConfig
-    from lidar_slam_tpu_torch.pipeline import LoopClosingConfig
-
-    return LoopClosingConfig(loop_step=1, diff_num=20, sc=ScanContextConfig(num_exclude_recent=20))
-
-
 def loop_store(root):
     """bench.py:812-831: the 60 x 16 m corridor (density 30, seed 9), the
     14 / 16 / 12 hairpin at 1 m a frame, one 16 384-point scan (45 m range)
@@ -1280,32 +1208,6 @@ def loop_drive(dev, root, smi):
     res.update(launches=launches, attempts=attempts, detect_ms=detect_ms, verify_ms=verify_ms,
                syncs_per_attempt=attempt_syncs[0])
     return res
-
-
-def circle_graph(builder, n, radius, rng):
-    """bench.py:207-233 / 276-297: n poses on a circle, odometry edges with
-    N(0, 0.02) se(3) noise chained into the initial guess, one loop edge
-    from the last node to the first; node 0 fixed."""
-    import torch
-
-    from lidar_slam_tpu_torch.geom import se3_exp
-
-    gt = []
-    for i in range(n):
-        th = 2 * np.pi * i / n
-        T = np.eye(4, dtype=np.float32)
-        T[:3, :3] = np.array([[np.cos(th), -np.sin(th), 0], [np.sin(th), np.cos(th), 0], [0, 0, 1]], np.float32)
-        T[:3, 3] = [radius * np.cos(th), radius * np.sin(th), 0.0]
-        gt.append(T)
-    est = [gt[0]]
-    builder.add_se3_node(gt[0], fixed=True)
-    for i in range(1, n):
-        Z = np.linalg.inv(gt[i - 1]) @ gt[i]
-        Zn = se3_exp(torch.as_tensor(rng.normal(0, 0.02, 6).astype(np.float32))).numpy() @ Z
-        est.append((est[-1] @ Zn).astype(np.float32))
-        builder.add_se3_node(est[-1])
-        builder.add_se3_edge(i - 1, i, Zn, noise=[0.5, 0.5, 0.5, 0.01, 0.01, 0.01])
-    builder.add_se3_edge(n - 1, 0, np.linalg.inv(gt[n - 1]) @ gt[0], noise=[0.3, 0.3, 0.3, 0.01, 0.01, 0.01])
 
 
 def pose_graphs(dev, smi):
@@ -2570,6 +2472,69 @@ def mesh_rank(mesh, inp, smi):
     return out
 
 
+def bench_phase(smi):
+    """Phase 20: `python3 -m lidar_slam_tpu_torch bench` in a subprocess
+    (BENCH_TIMEOUT). Exit 0; each of bench.py's metric lines once, with its
+    unit, in the bench's order (the headline last) and the card's name and
+    power limit in its `device` field; both headlines over the port's CPU
+    path (baseline "cpu"); every leg's logged launch counts as its path must
+    launch them, among them: each scan-match drive one ndt_newton launch a
+    frame and K1 none, the parity gate K1 once, the evaluation probe K1
+    EVAL_CHAIN x EVAL_REPS times, A-LOAM K2 10 times a sweep, matching two
+    ndt_newton launches a frame. Returns the launches by kernel summed over
+    the legs, by leg, and the metric lines."""
+    from lidar_slam_tpu_torch import bench as B
+
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run([sys.executable, "-m", "lidar_slam_tpu_torch", "bench"], capture_output=True, text=True,
+                              timeout=BENCH_TIMEOUT, cwd=os.path.dirname(os.path.abspath(__file__)))
+    except subprocess.TimeoutExpired as e:
+        raise CheckFailed(f"bench: no exit in {BENCH_TIMEOUT} s; its log ends {(e.stderr or '')[-2000:]}") from None
+    seconds = time.perf_counter() - t0
+    for ln in proc.stderr.splitlines():
+        if ln.startswith(("[launches]", "[leg]", "[cpu]", "[roofline]", "[eval_probe]", "FAILED")) or "ms/frame" in ln:
+            log(f"[bench] {ln}")
+    for ln in proc.stdout.splitlines():
+        log(f"[bench] {ln}")
+    check(proc.returncode == 0, f"bench: exit {proc.returncode}; its log ends {proc.stderr[-3000:]}")
+    lines = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    check([(r["metric"], r["unit"]) for r in lines] == list(B.METRICS),
+          f"bench: metric lines {[(r['metric'], r['unit']) for r in lines]}, expected {list(B.METRICS)}")
+    check(all(r["device"] == smi for r in lines), f"bench: device fields {sorted({r['device'] for r in lines})}")
+    by_name = {r["metric"]: r for r in lines}
+    for head, base in (("ndt_scan_match_fps", "ndt_cpu_fps"), ("ndt_scan_match_fps_radius27", "ndt_cpu_fps_radius27")):
+        r = by_name[head]
+        check(r.get("baseline") == "cpu" and abs(r["vs_baseline"] - r["value"] / by_name[base]["value"]) <= 1e-9 * r["value"],
+              f"bench: {head} is not over the port's CPU path: {r}")
+    legs = {}
+    for ln in proc.stderr.splitlines():
+        if ln.startswith("[launches] "):
+            rec = json.loads(ln[len("[launches] "):])
+            legs[rec["leg"]] = rec
+    check(all(rec["ok"] for rec in legs.values()), f"bench: launches off their paths: {legs}")
+    per_sweep = 2 + 2 * (B.ALOAM_SWEEPS - 2)
+    want = {
+        "cuda direct7 fused": {"ndt_newton": 2 * B.N_FRAMES, "ndt_reduce_fused": 0},
+        "cuda radius27 fused": {"ndt_newton": 2 * B.N_FRAMES, "ndt_reduce_fused": 0},
+        "parity": {"ndt_reduce_fused": 1},
+        "eval_probe": {"ndt_reduce_fused": B.EVAL_CHAIN * B.EVAL_REPS},
+        "aloam": {"window_knn": 10 * per_sweep},
+        "matching": {"ndt_newton": 2 * (B.MATCH_FRAMES + 3 * (B.MATCH_FRAMES - 3))},
+    }
+    for leg, counts in want.items():
+        got = legs.get(leg, {}).get("launches", {})
+        check(all(got.get(k) == v for k, v in counts.items()), f"bench {leg}: launches {got}, expected {counts}")
+    check(legs.get("front_end", {}).get("launches", {}).get("ndt_newton", 0) > 0
+          and legs.get("loop_verify", {}).get("launches", {}).get("ndt_newton", 0) > 0,
+          "bench: the front end or loop verification launched no ndt_newton")
+    total = {k: sum(rec["launches"][k] for rec in legs.values()) for k in next(iter(legs.values()))["launches"]}
+    head = by_name["ndt_scan_match_fps"]
+    log(f"[bench] phase 20: exit 0 in {seconds:.1f} s, {len(lines)} metric lines, ndt_scan_match_fps "
+        f"{head['value']:.2f} ({head['vs_baseline']:.2f} x the port's CPU path); launches {total} ({smi})")
+    return {"launches": total, "legs": legs, "lines": by_name, "seconds": seconds, "log": proc.stderr}
+
+
 def reset_launches():
     from lidar_slam_tpu_torch.ops.cuda import knn_fused, ndt_fused, ndt_gather, ndt_newton
 
@@ -2596,11 +2561,7 @@ def main(argv=None) -> int:
     check("jax" not in sys.modules, "the port imported jax")
     dev = lidar_slam_tpu_torch.device("cuda")
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    ).stdout.strip().splitlines()
-    smi = smi[0] if smi else "nvidia-smi: no output"
+    smi = device_label(dev)  # name and power limit as nvidia-smi gives them: the bench's device field
     log(f"[device] {kind} (count {count}); {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}")
 
@@ -2707,6 +2668,10 @@ def main(argv=None) -> int:
     log(f"[launches] K1: {k1_mesh[1]} in the sharded paths on one rank, {k1_mesh[2]} on two "
         f"({mesh[2]['k1_align']} and {mesh[2]['k1_drive']} by rank in the alignments and the drives) ({smi})")
 
+    # this slice's path: the bench entry point, in its own process; its counts are its legs'
+    bench = bench_phase(smi)
+    log(f"[launches] the bench: {bench['launches']} ({smi})")
+
     d7, r27 = parity["direct7"], parity["radius27"]
     n7, n27 = newton["direct7"], newton["radius27"]
     k2 = next(c for c in knn if c["density"] == f"{DENSE:g}" and c["case"] == "odometry")
@@ -2719,7 +2684,8 @@ def main(argv=None) -> int:
             "replaces": "lidar_slam_tpu/ops/pallas/ndt_fused.py:297",
             "replaces_loop": "lidar_slam_tpu/models/registration/ndt.py:1407",
             "launches": launches_drive + launches_front + loop["launches"] + session["launches"]
-            + session["launches_drift"] + matching["launches"] + rebuilt["launches"] + cli["launches"],
+            + session["launches_drift"] + matching["launches"] + rebuilt["launches"] + cli["launches"]
+            + bench["launches"]["ndt_newton"],
             "max_abs_err": max(n7["max_abs_err"], n27["max_abs_err"], loop["max_abs_err"], matching["max_abs_err"]),
             "ms": n7["ms"],
             "plain_ms": n7["plain_ms"],
@@ -2754,14 +2720,16 @@ def main(argv=None) -> int:
             "launches_front_end_rebuild": rebuilt["launches"],
             "launches_cli_mapping": cli["launches_mapping"],
             "launches_cli_matching": cli["launches_matching"],
+            "launches_bench": bench["launches"]["ndt_newton"],
         },
         {
             "name": "ndt_reduce_fused",
             "route": "cuda",
             "source": "lidar_slam_tpu_torch/csrc/ndt_fused.cu",
             "replaces": "lidar_slam_tpu/ops/pallas/ndt_fused.py:297",
-            "launches": launches_k1 + launches_lm + k1_mesh[1] + k1_mesh[2],
+            "launches": launches_k1 + launches_lm + k1_mesh[1] + k1_mesh[2] + bench["launches"]["ndt_reduce_fused"],
             "max_abs_err": max(d7[0], r27[0]),
+            "max_abs_err_pose_on_card": max(d7[5], r27[5]),
             "ms": d7[1],
             "plain_ms": d7[2],
             "bound_ms": d7[3],
@@ -2778,13 +2746,15 @@ def main(argv=None) -> int:
             "k1_shard_rel_err_world2": mesh[2]["k1_shard_rel_err"],
             "sharded_align_ms_world1": mesh[1]["align_ms"],
             "sharded_align_ms_world2": mesh[2]["align_ms"],
+            "launches_bench": bench["launches"]["ndt_reduce_fused"],
+            "bench_eval_ms": bench["lines"]["ndt_mfu"]["eval_ms"],
         },
         {
             "name": "window_knn",
             "route": "cuda",
             "source": "lidar_slam_tpu_torch/csrc/knn_fused.cu",
             "replaces": "lidar_slam_tpu/ops/pallas/knn_fused.py:117",
-            "launches": launches_k2 + cli["launches_aloam"],
+            "launches": launches_k2 + cli["launches_aloam"] + bench["launches"]["window_knn"],
             "max_abs_err": max(c["max_abs_err"] for c in knn),
             "ms": k2["ms"],
             "plain_ms": k2["plain_ms"],
@@ -2793,6 +2763,7 @@ def main(argv=None) -> int:
             "library_ms": None,
             "alone_ms": k2["alone_ms"],
             "launches_cli_aloam": cli["launches_aloam"],
+            "launches_bench": bench["launches"]["window_knn"],
             "cases": [{key: v for key, v in c.items() if key != "max_abs_err"} for c in knn],
         },
         {
@@ -2800,7 +2771,7 @@ def main(argv=None) -> int:
             "route": "cuda",
             "source": "lidar_slam_tpu_torch/csrc/ndt_gather.cu",
             "replaces": "lidar_slam_tpu/ops/pallas/ndt_reduce.py:49",
-            "launches": launches_k3,
+            "launches": launches_k3 + bench["launches"]["gather_stats_onehot"],
             "max_abs_err": max(v["max_abs_err"] for v in gather.values()),
             "ms": g7["ms"],
             "plain_ms": g7["plain_ms"],

@@ -9,6 +9,10 @@ plain subcommands over the same pipeline:
   python3 -m lidar_slam_tpu_torch mapping --synthetic 60 --out slam_data
   python3 -m lidar_slam_tpu_torch matching --map slam_data --kitti-raw <drive_dir>
   python3 -m lidar_slam_tpu_torch inspect --kitti-raw <drive_dir>
+  python3 -m lidar_slam_tpu_torch bench
+
+`bench` runs the port's benchmark suite (bench.py: bench.py's legs and
+metric lines on the card).
 
 The arguments, the files under --out and the printed lines are the JAX
 package's. Everything runs on the first CUDA card unless `--device` names
@@ -545,12 +549,17 @@ def main(argv=None) -> int:
     add_source(ip)
     ip.add_argument("--frames", type=int, default=5)
 
-    sub.add_parser("bench", help="the headline benchmark (not ported yet: ROADMAP A.1)")
+    bp = sub.add_parser("bench", help="the benchmark suite: bench.py's legs and metric lines (bench.py)")
+    bp.add_argument(
+        "--device", default=None,
+        help="torch device to run on (default: the first CUDA card; 'cpu' runs every leg on the CPU)",
+    )
 
     args = p.parse_args(argv)
     if args.cmd == "bench":
-        print("lidar_slam_tpu_torch: bench is not ported yet (ROADMAP A.1, the bench slice)", file=sys.stderr)
-        return 2
+        from . import bench
+
+        return bench.main([] if args.device is None else ["--device", args.device])
     if not (args.kitti_raw or args.kitti_odometry or args.synthetic):
         p.error(f"{args.cmd} needs --kitti-raw, --kitti-odometry or --synthetic N")
     if args.cmd == "mapping" and args.mesh_devices > 1:

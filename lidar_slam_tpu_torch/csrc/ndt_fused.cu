@@ -14,7 +14,12 @@
 //
 // Since the clamped-Newton alignment moved onto the card (ndt_newton.cu),
 // this one-shot form serves ndt_derivatives and the host loop of the
-// More-Thuente line search (max_step_iterations > 0).
+// More-Thuente line search (max_step_iterations > 0). The pose comes either
+// as host-computed coefficients in the launch arguments, or as a [6] pose on
+// the card (`pose` not null): each block then computes the coefficients
+// itself (ndt_reduce.cuh: pose_coefficients), so a chain of evaluations whose
+// pose depends on the last one's sums needs no host read (the bench's
+// evaluation probe).
 //
 // Design: a grid of up to as many blocks as can be resident strides over
 // the (point, stencil offset) pairs; masked and non-finite points leave at
@@ -71,14 +76,23 @@ __global__ void __launch_bounds__(kThreads, 2)
     ndt_fused_kernel(const float* __restrict__ points, const uint8_t* __restrict__ mask,
                      const float* __restrict__ weights, const int* __restrict__ index,
                      const float4* __restrict__ packed, const __grid_constant__ NdtFusedParams p,
-                     float* __restrict__ partials, unsigned int* __restrict__ ticket,
-                     float* __restrict__ out) {
+                     const float* __restrict__ pose, float* __restrict__ partials,
+                     unsigned int* __restrict__ ticket, float* __restrict__ out) {
   __shared__ float coef[kNCoef];
   __shared__ float warp_sums[kWarps][kNAcc];
   __shared__ float sums[kNAcc];
   __shared__ bool is_last;
-  // R, t, J, H lead the struct, contiguous (read in place: __grid_constant__)
-  for (int i = threadIdx.x; i < kNCoef; i += kThreads) coef[i] = reinterpret_cast<const float*>(&p)[i];
+  if (pose != nullptr) {
+    if (threadIdx.x == 0) {
+      float pe[6];
+#pragma unroll
+      for (int i = 0; i < 6; ++i) pe[i] = pose[i];
+      pose_coefficients(pe, coef);
+    }
+  } else {
+    // R, t, J, H lead the struct, contiguous (read in place: __grid_constant__)
+    for (int i = threadIdx.x; i < kNCoef; i += kThreads) coef[i] = reinterpret_cast<const float*>(&p)[i];
+  }
   const GridConsts g = {{p.origin[0], p.origin[1], p.origin[2]}, p.res, p.res2, p.d1, p.d2,
                         {p.dims[0], p.dims[1], p.dims[2]}, p.weight_derivatives};
   __syncthreads();
@@ -141,13 +155,16 @@ int ndt_fused_blocks(int n, int n_off) {
   return 0;
 }
 
-// Launches the reduction on `stream`. `partials` holds blocks * 28 floats
-// of scratch and `ticket` one word of scratch, both owned by this call;
-// the ticket is zeroed on `stream` before the kernel. `out` holds 32
-// floats. Returns the first CUDA error (0 = ok).
+// Launches the reduction on `stream`. `pose` is null (params carries the
+// pose coefficients) or [6] floats on the card (params' R, t, J, H are not
+// read). `partials` holds blocks * 28 floats of scratch and `ticket` one
+// word of scratch, both owned by this call; the ticket is zeroed on
+// `stream` before the kernel. `out` holds 32 floats. Returns the first CUDA
+// error (0 = ok).
 int ndt_fused_launch(const float* points, const uint8_t* mask, const float* weights,
-                     const int* index, const float* packed, const NdtFusedParams* params, int n_off,
-                     int blocks, float* partials, unsigned int* ticket, float* out, void* stream) {
+                     const int* index, const float* packed, const NdtFusedParams* params,
+                     const float* pose, int n_off, int blocks, float* partials,
+                     unsigned int* ticket, float* out, void* stream) {
   const NdtFusedParams p = *params;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float4* packed4 = reinterpret_cast<const float4*>(packed);
@@ -155,10 +172,10 @@ int ndt_fused_launch(const float* points, const uint8_t* mask, const float* weig
   const cudaError_t zeroed = cudaMemsetAsync(ticket, 0, sizeof(unsigned int), s);
   if (zeroed != cudaSuccess) return static_cast<int>(zeroed);
   if (n_off == 7) {
-    ndt_fused_kernel<7><<<blocks, kThreads, 0, s>>>(points, mask, weights, index, packed4, p,
+    ndt_fused_kernel<7><<<blocks, kThreads, 0, s>>>(points, mask, weights, index, packed4, p, pose,
                                                     partials, ticket, out);
   } else {
-    ndt_fused_kernel<27><<<blocks, kThreads, 0, s>>>(points, mask, weights, index, packed4, p,
+    ndt_fused_kernel<27><<<blocks, kThreads, 0, s>>>(points, mask, weights, index, packed4, p, pose,
                                                      partials, ticket, out);
   }
   return static_cast<int>(cudaGetLastError());

@@ -19,7 +19,10 @@ card (`ndt_newton.py`). Pose coefficients (R, t and the angle-derivative
 tensors jang [3, 3, 3], hang [3, 3, 3, 3] of `_angle_jacobian_tensors`) are
 host values for the kernel, which receives them by value as launch
 arguments; the plain version also takes them as tensors on the points'
-device.
+device. Or the caller passes the pose itself, a [6] tensor on the points'
+device (`pose=`): the kernel then computes the coefficients on the card
+and the plain version with `ndt_newton.pose_coefficients`, so a chain of
+evaluations can keep its pose on the card with no host read.
 """
 
 from __future__ import annotations
@@ -210,7 +213,7 @@ def _library() -> ctypes.CDLL:
         lib.ndt_fused_blocks.argtypes = [ctypes.c_int, ctypes.c_int]
         lib.ndt_fused_blocks.restype = ctypes.c_int
         lib.ndt_fused_launch.argtypes = [ctypes.c_void_p] * 5 + [
-            ctypes.POINTER(_Params), ctypes.c_int, ctypes.c_int,
+            ctypes.POINTER(_Params), ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ]
         lib.ndt_fused_launch.restype = ctypes.c_int
@@ -219,16 +222,23 @@ def _library() -> ctypes.CDLL:
 
 def ndt_reduce_fused(
     points, mask, weights, index, packed, origin, R, t, jang, hang, *,
-    dims, resolution, d1, d2, stencil, weight_derivatives,
+    dims, resolution, d1, d2, stencil, weight_derivatives, pose=None,
 ):
     """K1 (replaces ops/pallas/ndt_fused.py::ndt_reduce_fused): the [32]
     sums for `points` [N, 3] (raw, untransformed), `mask` [N] bool,
     `weights` [N], against the map's dense `index` [V] int32 and packed
     stats `packed` [C+1, 16]. CUDA tensors launch the Hopper kernel; CPU
-    tensors take the plain version."""
+    tensors take the plain version. With `pose` ([6] float32 on the points'
+    device) R, t, jang and hang are not read (pass None)."""
     global launches
     dev = points.device
+    if pose is not None:
+        build.check_tensor("pose", pose, torch.float32, dev, (6,))
     if dev.type == "cpu":
+        if pose is not None:
+            from .ndt_newton import pose_coefficients  # ndt_newton imports this module
+
+            R, t, jang, hang = pose_coefficients(pose)
         return ndt_reduce_plain(
             points, mask, weights, index, packed, origin, R, t, jang, hang,
             dims=dims, resolution=resolution, d1=d1, d2=d2, stencil=stencil,
@@ -250,6 +260,8 @@ def ndt_reduce_fused(
     if packed.ndim != 2 or packed.shape[1] != 16 or packed.data_ptr() % 16:
         raise ValueError("packed must be a 16-byte aligned [C+1, 16] table")
 
+    if pose is not None:  # the kernel computes the coefficients from `pose`
+        R, t, jang, hang = np.zeros((3, 3)), np.zeros(3), np.zeros((3, 3, 3)), np.zeros((3, 3, 3, 3))
     params = _pack_params(origin, R, t, jang, hang, dims, resolution, d1, d2, n, weight_derivatives)
     lib = _library()
     with torch.cuda.device(dev):
@@ -264,7 +276,7 @@ def ndt_reduce_fused(
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.ndt_fused_launch(
             points.data_ptr(), mask.data_ptr(), weights.data_ptr(), index.data_ptr(),
-            packed.data_ptr(), ctypes.byref(params), n_off, blocks,
+            packed.data_ptr(), ctypes.byref(params), None if pose is None else pose.data_ptr(), n_off, blocks,
             scratch.data_ptr(), scratch[28 * blocks:].data_ptr(), out.data_ptr(), stream,
         )
     if err != 0:

@@ -20,6 +20,7 @@ Torch is pinned to one CPU thread while the file runs.
 
 import contextlib
 import io
+import json
 import os
 import shutil
 
@@ -242,7 +243,32 @@ def test_prefetch_order_and_errors():
         list(it)
 
 
-def test_inspect_and_refusals(tmp_path, capsys):
+def _bench_refusal_and_small_run(monkeypatch, capsys):
+    """`bench` without a card refuses at once, naming the missing card;
+    `bench --device cpu` at test_torch_bench.py's small sizes prints each of
+    bench.py's metric lines once, headline last over the port's CPU path,
+    every line with its device, and exits 0."""
+    from test_torch_bench import shrink
+
+    from lidar_slam_tpu_torch import bench
+
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit) as e:
+            tcli.main(["bench"])
+        assert e.value.code == 2 and "CUDA is not available" in capsys.readouterr().err
+    shrink(monkeypatch)
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")  # the CPU baseline's subprocess: one thread, as this file
+    assert tcli.main(["bench", "--device", "cpu"]) == 0
+    out = capsys.readouterr()
+    lines = [json.loads(ln) for ln in out.out.splitlines() if ln.startswith("{")]
+    assert [(r["metric"], r["unit"]) for r in lines] == list(bench.METRICS)
+    assert all(r["device"] == "cpu" for r in lines)
+    assert lines[-1]["baseline"] == "cpu" and lines[-2]["metric"] == "ndt_cpu_fps"
+    assert lines[-1]["vs_baseline"] == pytest.approx(lines[-1]["value"] / lines[-2]["value"])
+    assert '"ok": true' in out.err and '"ok": false' not in out.err  # each leg's launch counts
+
+
+def test_inspect_and_refusals(tmp_path, capsys, monkeypatch):
     from lidar_slam_tpu_torch.io.kitti_writer import write_kitti_raw_drive
     from lidar_slam_tpu_torch.io.synthetic import SyntheticWorld, make_trajectory, simulate_scan
 
@@ -253,8 +279,7 @@ def test_inspect_and_refusals(tmp_path, capsys):
     assert tcli.main(["inspect", "--kitti-raw", drive, "--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert out.count("frame ") == 3 and "inspect: OK" in out
-    assert tcli.main(["bench"]) == 2
-    assert "ROADMAP A.1" in capsys.readouterr().err
+    _bench_refusal_and_small_run(monkeypatch, capsys)
     # more cards asked for than there are: exit 2, naming both counts
     n = max(2, torch.cuda.device_count() + 1)
     assert tcli.main(["mapping", "--synthetic", "3", "--mesh-devices", str(n)]) == 2

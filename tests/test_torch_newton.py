@@ -98,15 +98,16 @@ class _Sym:
 
 
 def test_kernel_source_has_the_coefficient_terms():
-    """csrc/ndt_newton.cu computes the pose coefficients with exactly the
-    expressions of `coefficient_terms`, each product and sum rounded on its
-    own, in the kernel's layout (the CUDA side has no CPU mode, so the
-    texts are compared)."""
+    """The kernels' device pose math (csrc/ndt_reduce.cuh: pose_coefficients,
+    run by ndt_newton.cu and by ndt_fused.cu for a pose on the card) has
+    exactly the expressions of `coefficient_terms`, each product and sum
+    rounded on its own, in the kernel's layout (the CUDA side has no CPU
+    mode, so the texts are compared)."""
     rot = [_Sym(n) for n in ("ca", "sa", "cb", "sb", "cc", "sc")]
     ang = [_Sym(n) for n in ("cx", "sx", "cy", "sy", "cz", "sz")]
     R, J, H = ndt_newton.coefficient_terms(rot, ang, _Sym("0.0f"))
     want = [f"c[{k} + {i}] = {e.e};" for k, terms in (("kR", R), ("kJ", J), ("kH", H)) for i, e in enumerate(terms)]
-    src = (CSRC / "ndt_newton.cu").read_text()
+    src = (CSRC / "ndt_reduce.cuh").read_text()
     block = src[src.index("// BEGIN coefficient_terms"):src.index("// END coefficient_terms")]
     got = [ln.strip() for ln in block.splitlines()[1:] if ln.strip()]
     assert got == want
