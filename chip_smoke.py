@@ -107,7 +107,9 @@ grid) on bench.py's aloam_leg world and trajectory, at bench.py's density
      matching_drive over the same frames (the guard, and each pose the
      stepwise frame's from the same guess); the OnlyPosition yaw init
      (height map and 270-yaw search) on the card against the CPU; the
-     refresh stall;
+     refresh stall. With `--matching-out FILE` the configuration, global
+     map, init pose, raw frames and Matching.update's poses are saved for
+     matching_witness.py, which replays them through the JAX Matching;
  16. FrontEnd(incremental_map=False) at phase 6's operating point and
      frames (the 0.15 m guard, one ndt_newton launch an alignment, the
      rebuild's ms a keyframe beside the incremental update's), and
@@ -152,7 +154,8 @@ grid) on bench.py's aloam_leg world and trajectory, at bench.py's density
      path must launch them (one ndt_newton launch a scan-match frame, K1 in
      the parity gate and the evaluation probe, K2 10 times an A-LOAM sweep,
      two ndt_newton launches a matching frame); its launches join the
-     kernels line's counts.
+     kernels line's counts; the log carries every drive's iterations and
+     errors a frame, the CPU baseline's among them.
 
 Phases 11-20 print the card's name and power limit on each summary line.
 
@@ -1495,7 +1498,26 @@ def matching_kernel_parity(m, frame, predict, res):
     return guess
 
 
-def matching_phase(dev, smi):
+def save_matching_run(path, cfg, traj, frames, gmap, poses, warm):
+    """Phase 15's inputs and the port's answers for matching_witness.py
+    (.npz): the MatchingConfig's fields (JSON), the truth [F, 4, 4], each
+    frame's raw points and mask, the global map's points, the FullPose
+    init pose (the first truth pose), the port's Matching.update pose of
+    every frame and its position error to the truth, and the first frame
+    the pose-error guard covers (the frames before it warm up)."""
+    poses = np.stack([np.asarray(p, np.float32) for p in poses])
+    errs = np.linalg.norm(poses[:, :3, 3] - np.asarray(traj)[:len(poses), :3, 3], axis=1)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    np.savez_compressed(
+        path, config=json.dumps(dataclasses.asdict(cfg)), gt=np.asarray(traj, np.float32)[:len(poses)],
+        frames_pts=np.stack([np.asarray(f[0], np.float32) for f in frames]),
+        frames_msk=np.stack([np.asarray(f[1], bool) for f in frames]), global_map=np.asarray(gmap, np.float32),
+        init_pose=np.asarray(traj[0], np.float32), port_poses=poses, port_errors=errs.astype(np.float32),
+        guard_from=np.int64(warm),
+    )
+
+
+def matching_phase(dev, smi, matching_out=None):
     """Phase 15: Matching at MatchingConfig() widths on the matching_leg
     world at DENSE. The crop against local_map_capacity; ndt_newton against
     its plain version at the matching shapes on frames 0-2 (each stepwise
@@ -1507,7 +1529,9 @@ def matching_phase(dev, smi):
     _height_map and _yaw_search (frame 3, the OnlyPosition init) on the card
     against the same calls on CPU tensors (the same best yaw, scores within
     YAW_TOL), an OnlyPosition Matching through set_gnss_pose; the refresh
-    stall (reset_local_map). Returns the kernels-line fields."""
+    stall (reset_local_map). With `matching_out`, saves the inputs and the
+    Matching.update poses of every frame (save_matching_run). Returns the
+    kernels-line fields."""
     import torch
 
     from lidar_slam_tpu_torch.ops.cuda import ndt_fused
@@ -1534,13 +1558,14 @@ def matching_phase(dev, smi):
     check(max(used) < cfg.ndt.max_compact_voxels, f"matching: compact voxels {used} fill the table")
 
     res = {"max_abs_err": 0.0, "coarse": [], "fine": []}
-    warm_launches = 0
+    warm_launches, warm_poses = 0, []
     for i in range(MATCH_WARM):
         frame = M._frame(*loaded[i], cfg)
         kernel_pose = matching_kernel_parity(m, frame, m.current_pose @ m.predict_step, res)
         before = N.launches
         pose = m.update(None, preloaded=loaded[i])
         warm_launches += N.launches - before
+        warm_poses.append(pose)
         check(np.array_equal(pose, kernel_pose.astype(np.float32)),
               f"matching frame {i}: Matching.update's pose is not the kernel's")
     for level in ("coarse", "fine"):
@@ -1563,6 +1588,9 @@ def matching_phase(dev, smi):
           f"matching: {N.launches} ndt_newton and {ndt_fused.launches} K1 launches in {n} frames, expected 2 a frame")
     check(syncs[0] == 2 * n, f"matching: {syncs[0]} host syncs in {n} frames, expected 2 a frame")
     check(errs.mean() < MATCH_GUARD, f"matching: pose error guard ({errs.mean():.4f} m)")
+    if matching_out:
+        save_matching_run(matching_out, cfg, traj, frames, gmap, warm_poses + poses, MATCH_WARM)
+        log(f"[matching] inputs and the {len(warm_poses + poses)} Matching.update poses saved to {matching_out}")
 
     pts_seq = torch.stack([loaded[i][0] for i in range(MATCH_WARM, MATCH_FRAMES)])
     msk_seq = torch.stack([loaded[i][1] for i in range(MATCH_WARM, MATCH_FRAMES)])
@@ -2493,7 +2521,8 @@ def bench_phase(smi):
         raise CheckFailed(f"bench: no exit in {BENCH_TIMEOUT} s; its log ends {(e.stderr or '')[-2000:]}") from None
     seconds = time.perf_counter() - t0
     for ln in proc.stderr.splitlines():
-        if ln.startswith(("[launches]", "[leg]", "[cpu]", "[roofline]", "[eval_probe]", "FAILED")) or "ms/frame" in ln:
+        if (ln.startswith(("[launches]", "[leg]", "[cpu]", "[roofline]", "[eval_probe]", "FAILED")) or "ms/frame" in ln
+                or "iterations per frame" in ln or "error per frame" in ln):
             log(f"[bench] {ln}")
     for ln in proc.stdout.splitlines():
         log(f"[bench] {ln}")
@@ -2549,6 +2578,7 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch / CUDA port on one GPU.")
     ap.add_argument("--session-out", help="save phase 13's runs (.npz) for session_witness.py")
+    ap.add_argument("--matching-out", help="save phase 15's inputs and poses (.npz) for matching_witness.py")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -2647,7 +2677,7 @@ def main(argv=None) -> int:
     # this slice's paths: map-matching localization, the rebuilt local map
     # and session restore, the LM solver; counts reset inside each
     reset_launches()
-    matching = matching_phase(dev, smi)
+    matching = matching_phase(dev, smi, args.matching_out)
     rebuilt = rebuilt_front_end(dev, traj_front, loaded_front, smi)
     launches_lm = lm_phase(workload, cfg, drives, smi)
     log(f"[launches] ndt_newton: {matching['launches']} in the matching paths, {rebuilt['launches']} in the "

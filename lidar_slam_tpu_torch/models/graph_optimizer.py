@@ -13,7 +13,10 @@ chosen on the graph's capacity as the JAX package chooses:
 
 Every per-node sum is `ops.pointcloud.scatter_sum`, which adds in the same
 order on every run (no `index_add` float atomics), so a solve on the card
-repeats to the bit.
+repeats to the bit. On the CPU a solve runs on one torch thread, so it
+gives the one-thread bits at any thread count (chi2, the PCG's dot products
+and LAPACK's blocked Cholesky split their work, and so their rounding,
+among torch's threads).
 
 Host synchronisation: the JAX optimizer is one device program, an LM
 `lax.while_loop` around a PCG `lax.while_loop`. Here the PCG loop runs its
@@ -29,6 +32,7 @@ Node parameterization: right perturbation T <- T exp(delta), delta =
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Tuple
 
@@ -37,7 +41,7 @@ import torch
 
 from .. import device as _default_device
 from ..geom.se3 import matrix_to_quat, pose_inverse, se3_exp, se3_log, so3_hat
-from ..ops.pointcloud import scatter_sum
+from ..ops.pointcloud import one_torch_thread, scatter_sum
 
 
 @dataclasses.dataclass(frozen=True)
@@ -301,10 +305,11 @@ def optimize_pose_graph(
         b = _gradient(asm)
         return _solve_dense(asm, lam, b) if dense else _solve_pcg(asm, lam, b, cfg)
 
-    poses, stats = levenberg_marquardt(
-        graph.poses, graph.node_valid & ~graph.node_fixed, step,
-        lambda poses: graph_chi2(dataclasses.replace(graph, poses=poses), cfg), cfg,
-    )
+    with one_torch_thread() if graph.poses.device.type == "cpu" else contextlib.nullcontext():
+        poses, stats = levenberg_marquardt(
+            graph.poses, graph.node_valid & ~graph.node_fixed, step,
+            lambda poses: graph_chi2(dataclasses.replace(graph, poses=poses), cfg), cfg,
+        )
     return dataclasses.replace(graph, poses=poses), stats
 
 

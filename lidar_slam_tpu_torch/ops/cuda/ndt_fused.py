@@ -28,11 +28,13 @@ evaluations can keep its pose on the card with no host read.
 from __future__ import annotations
 
 import ctypes
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from . import build
+from ..pointcloud import one_torch_thread
 from .ndt_gather import gather_stats_sorted
 
 NOUT = 32
@@ -128,7 +130,14 @@ def ndt_reduce_plain(
     The stats rows come through the dense `index`, or, when the map's
     compact-row `keys` are given, by key through K3 (the JAX package's
     `gather="onehot"` fetch; the rows fetched are the same). Map keys hold
-    NDTMap's order, so K3 takes its presorted entry: one launch a chunk."""
+    NDTMap's order, so K3 takes its presorted entry: one launch a chunk.
+
+    Each chunk of points gives its score, gradient and Hessian sums, and
+    the chunks' sums are added in chunk order. On the CPU every chunk runs
+    on one torch thread, the chunks side by side on a pool of host threads:
+    torch's CPU sums split among its threads, so their float rounding would
+    follow torch.get_num_threads(); this way the sums are the one-thread
+    sums, bit for bit, at any thread count."""
     dev = points.device
     R, t, jang, hang, origin_t = (
         _const(k, a, dev) for k, a in (("R", R), ("t", t), ("jang", jang), ("hang", hang), ("origin", origin))
@@ -138,15 +147,15 @@ def ndt_reduce_plain(
     gate_radius = stencil == "radius27"
     res = float(resolution)
     eye = torch.eye(3, dtype=torch.float32, device=dev)
+    iu = torch.triu_indices(6, 6, device=dev)
 
     # non-finite points are masked out entirely (and zeroed, so no NaN
     # survives a 0 * NaN product)
     mask = mask & torch.all(torch.isfinite(points), dim=-1)
     pts = torch.where(mask[:, None], points, 0.0)
 
-    out = torch.zeros(NOUT, dtype=torch.float32, device=dev)
-    iu = torch.triu_indices(6, 6, device=dev)
-    for s in range(0, pts.shape[0], chunk):
+    def chunk_sums(s):
+        """The [28] sums of the points s:s + chunk."""
         x, m, pw = pts[s:s + chunk], mask[s:s + chunk], weights[s:s + chunk]
         xp = x @ R.T + t
         cell = torch.floor((xp - origin_t) / res).to(torch.int32)
@@ -178,32 +187,45 @@ def ndt_reduce_plain(
         expt = torch.where(gate, expt, 0.0)
         gf = gate.to(torch.float32)
 
-        out[0] += torch.sum(gf * sv * pw[:, None] * (-d1) * expt)
+        score = torch.sum(gf * sv * pw[:, None] * (-d1) * expt)
         dw = sv * pw[:, None] if weight_derivatives else pw[:, None].expand_as(sv)
         f = gf * dw * d1 * d2 * expt  # [C, S]
 
         jrot = torch.einsum("arj,cj->cra", jang, x)  # Jrot[c, r, a]
         J = torch.cat([eye.expand(x.shape[0], 3, 3), jrot], dim=-1)  # [C, 3, 6]
         qJ = torch.einsum("csk,ckp->csp", q, J)
-        out[1:7] += torch.einsum("cs,csp->p", f, qJ)
+        grad = torch.einsum("cs,csp->p", f, qJ)
+        if not compute_hessian:
+            return torch.cat([score[None], grad, grad.new_zeros(21)])
+        h1 = -d2 * torch.einsum("cs,csi,csj->ij", f, qJ, qJ)
+        cinv = torch.stack(
+            [
+                torch.stack([ixx, ixy, ixz], dim=-1),
+                torch.stack([ixy, iyy, iyz], dim=-1),
+                torch.stack([ixz, iyz, izz], dim=-1),
+            ],
+            dim=-2,
+        )  # [C, S, 3, 3]
+        cJ = torch.einsum("csik,ckp->csip", cinv, J)
+        h3 = torch.einsum("cs,cki,cskj->ij", f, J, cJ)
+        hrot = torch.einsum("abrk,ck->cabr", hang, x)
+        h2r = torch.einsum("cs,csr,cabr->ab", f, q, hrot)
+        hess = h1 + h3
+        hess[3:, 3:] += h2r
+        return torch.cat([score[None], grad, hess[iu[0], iu[1]]])
 
-        if compute_hessian:
-            h1 = -d2 * torch.einsum("cs,csi,csj->ij", f, qJ, qJ)
-            cinv = torch.stack(
-                [
-                    torch.stack([ixx, ixy, ixz], dim=-1),
-                    torch.stack([ixy, iyy, iyz], dim=-1),
-                    torch.stack([ixz, iyz, izz], dim=-1),
-                ],
-                dim=-2,
-            )  # [C, S, 3, 3]
-            cJ = torch.einsum("csik,ckp->csip", cinv, J)
-            h3 = torch.einsum("cs,cki,cskj->ij", f, J, cJ)
-            hrot = torch.einsum("abrk,ck->cabr", hang, x)
-            h2r = torch.einsum("cs,csr,cabr->ab", f, q, hrot)
-            hess = h1 + h3
-            hess[3:, 3:] += h2r
-            out[7:28] += hess[iu[0], iu[1]]
+    starts = range(0, pts.shape[0], chunk)
+    if dev.type != "cpu":
+        parts = [chunk_sums(s) for s in starts]
+    else:
+        # each pool thread pins its own OpenMP and MKL pools to one thread
+        with one_torch_thread() as threads, ThreadPoolExecutor(
+            max(1, min(len(starts), threads)), initializer=torch.set_num_threads, initargs=(1,)
+        ) as pool:
+            parts = list(pool.map(chunk_sums, starts))
+    out = torch.zeros(NOUT, dtype=torch.float32, device=dev)
+    for p in parts:
+        out[:28] += p
     return out
 
 

@@ -8,6 +8,7 @@ the per-frame path waits on the device for a data-dependent size.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Optional, Tuple
@@ -124,6 +125,22 @@ def _scatter_sum_cpu(target, index, values, keep):
     data[torch.arange(idx.numel()) + segment + 1] = values[keep][perm]
     out[rows] = torch.segment_reduce(data, "sum", lengths=lengths, axis=0)
     return out
+
+
+@contextlib.contextmanager
+def one_torch_thread():
+    """Torch's CPU ops on one thread while the block runs (yields the thread
+    count before it). torch's CPU sums, matmuls and LAPACK factorizations
+    split their work among its threads, so their float rounding follows
+    torch.get_num_threads(); on one thread it follows the data's shape."""
+    threads = torch.get_num_threads()
+    if threads > 1:
+        torch.set_num_threads(1)
+    try:
+        yield threads
+    finally:
+        if threads > 1:
+            torch.set_num_threads(threads)
 
 
 def voxel_downsample(cloud: PointCloud, leaf_size, out_capacity: Optional[int] = None) -> PointCloud:

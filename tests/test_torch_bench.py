@@ -122,6 +122,35 @@ def test_scan_match_drive_matches_reference(workloads, monkeypatch):
     assert errs.mean() <= 0.10, (errs, iters, j_iters)
 
 
+THREAD_FRAMES = 4  # the thread-count drive: frame 0 starts ~0.5 m off, 1-3 from the motion model
+
+
+def test_radius27_drive_does_not_follow_thread_count(monkeypatch):
+    """The CPU baseline's radius27 drive (gather two_level, the plain
+    reduction in the host loop) at SMALL's sizes over THREAD_FRAMES
+    frames: the same poses, to the bit, and the same iterations a frame at
+    one torch thread and at eight, the last frame tracked. Its first frames
+    run near the iteration cap, where float32 sums that split by thread
+    count sent every other frame of the full-size drive to the cap."""
+    for name in ("RAW_CAP", "FRAME_CAP", "GRID"):
+        monkeypatch.setattr(bench, name, SMALL[name])
+    monkeypatch.setattr(bench, "N_FRAMES", THREAD_FRAMES)
+    map_cloud, pts, msk, gt, guess = bench.build_workload(CPU)
+    cfg = dataclasses.replace(bench.ndt_config(gather="two_level"), stencil="radius27")
+    drive = bench.make_drive(build_ndt_map(map_cloud, cfg), cfg)
+    runs = {}
+    for threads in (1, 8):
+        torch.set_num_threads(threads)
+        try:
+            runs[threads] = drive(pts, msk, guess)
+        finally:
+            torch.set_num_threads(1)
+    (p1, it1, _), (p8, it8, _) = runs[1], runs[8]
+    assert it1.tolist() == it8.tolist(), (it1, it8)
+    np.testing.assert_array_equal(p1, p8)
+    assert np.linalg.norm(p1[-1, :3, 3] - gt[-1, :3, 3]) <= 0.10, (p1[:, :3, 3], it1)
+
+
 def test_derivative_parity_gate_passes_on_cpu(workloads, monkeypatch):
     monkeypatch.setattr(bench, "FRAME_CAP", SMALL["FRAME_CAP"])
     card = bench.Card(CPU, "cpu")

@@ -205,6 +205,33 @@ def test_builder_grows_and_matches_reference():
     np.testing.assert_array_equal(tb.node_poses(), np.tile(T, (10, 1, 1)))
 
 
+@pytest.mark.parametrize("nodes,solver,iterations", [(366, "dense", 3), (6144, "pcg", 2)])
+def test_solve_does_not_follow_thread_count(nodes, solver, iterations):
+    """bench.py's circle graph solved at one torch thread and at eight:
+    the same poses to the bit and the same LM iterations and chi2. A CPU
+    solve runs on one thread whatever the setting: at eight, LAPACK's
+    blocked Cholesky (6N = 2 196 rows) and the PCG's dot products (6N =
+    36 864 entries, past the size torch sums on one thread) split their
+    work, and their rounding, among the threads."""
+    from lidar_slam_tpu_torch.bench import circle_graph
+
+    builder = tg.PoseGraphBuilder(max_nodes=nodes, max_edges=nodes, max_priors=16, device="cpu")
+    circle_graph(builder, nodes, 50.0, np.random.default_rng(0))
+    graph = builder.to_graph()
+    cfg = tg.GraphOptimizerConfig(max_iterations=iterations, solver=solver)
+    runs = []
+    for threads in (1, 8):
+        torch.set_num_threads(threads)
+        try:
+            out, stats = tg.optimize_pose_graph(graph, cfg)
+        finally:
+            torch.set_num_threads(1)
+        runs.append((_np(out.poses), stats))
+    (p1, s1), (p8, s8) = runs
+    assert s1 == s8 and s1["chi2_after"] < s1["chi2_before"]
+    np.testing.assert_array_equal(p1, p8)
+
+
 def test_pose_graph_from_numpy_keeps_every_leaf():
     g = _loop_with_quat_priors().to_graph()
     fields = {name: leaf.copy() for name, leaf in _fields(g).items()}

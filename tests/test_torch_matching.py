@@ -13,6 +13,8 @@ of the JAX package's. Torch is pinned to one CPU thread while the file runs
 """
 
 import dataclasses
+import sys
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -37,6 +39,9 @@ CFG_J = jm.MatchingConfig(ndt=JNDTConfig(**_NDT, gather="auto"), **_KW)
 CFG_T = tm.MatchingConfig(ndt=TNDTConfig(**_NDT, gather="fused"), **_KW)
 N_FRAMES = 9
 POSE_TOL = 5e-3
+ROOT = Path(__file__).resolve().parents[1]
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))  # chip_smoke.py and matching_witness.py
 
 
 def _np(x):
@@ -200,3 +205,25 @@ def test_box_cropped_map_order_and_truncation(scene):
     ref = tm.voxel_downsample(TCloud.from_points(gmap[inside][:2048]), cfg.local_map_leaf, out_capacity=2048)
     np.testing.assert_array_equal(_np(m._local_cloud.mask), _np(ref.mask))
     np.testing.assert_array_equal(_np(m._local_cloud.points), _np(ref.points))
+
+
+def test_matching_witness_replays_the_port(scene, tmp_path, capsys):
+    """chip_smoke.py's --matching-out record (save_matching_run) of the
+    port's Matching over this file's scene, at its sizes with gather
+    "auto", replayed by matching_witness.py through the JAX Matching: the
+    same frames, both packages under the guard, every frame's errors and
+    the largest gap printed."""
+    import chip_smoke
+    import matching_witness
+
+    gmap, gt, frames = scene
+    cfg = dataclasses.replace(CFG_T, ndt=dataclasses.replace(CFG_T.ndt, gather="auto"))
+    m = tm.Matching(cfg, gmap, device="cpu")
+    m.set_gnss_pose(gt[0])
+    poses = [m.update(pts, mask) for pts, mask in frames]
+    path = tmp_path / "matching.npz"
+    chip_smoke.save_matching_run(str(path), cfg, gt, frames, gmap, poses, 3)
+    assert matching_witness.main([str(path)]) == 0
+    out = capsys.readouterr().out
+    assert f"{N_FRAMES} frames from the port, {N_FRAMES} poses from JAX (the same frames)" in out
+    assert "[port] mean error" in out and "[jax] mean error" in out and "largest per-frame gap" in out

@@ -383,6 +383,30 @@ class TestLMAndFitness:
         assert len(calls) == rt.iterations + 1 and rt.unresolved == 0.0
         np.testing.assert_allclose(rt.score, float(rj.score), rtol=1e-3)
 
+    def test_lm_does_not_follow_thread_count(self):
+        """ndt_align(solver="lm") on the plain reduction (gather two_level)
+        from tests/test_torch_cuda.py's far start, 5000 points, radius27:
+        the same pose to the bit and the same evaluations at one torch
+        thread and at eight, so its accept or reject cannot follow the
+        thread count."""
+        import test_torch_cuda
+
+        m, src, mask, w = test_torch_cuda._inputs(torch.device("cpu"))
+        cfg = dataclasses.replace(test_torch_cuda.CFG, solver="lm", gather="two_level", stencil="radius27")
+        guess = tndt._pose_to_matrix(np.asarray(test_torch_cuda.NEWTON_POSES[1], np.float32))
+        frame = TCloud(points=src, mask=mask, weights=w)
+        threads = torch.get_num_threads()
+        runs = []
+        try:
+            for n in (1, 8):
+                torch.set_num_threads(n)
+                runs.append(tndt.ndt_align(m, frame, torch.as_tensor(guess), cfg))
+        finally:
+            torch.set_num_threads(threads)
+        a, b = runs
+        assert a.iterations == b.iterations and a.score == b.score
+        np.testing.assert_array_equal(_np(a.pose), _np(b.pose))
+
     def test_lm_rejects_bad_steps(self):
         """From a guess where the damped step lowers the score, the trial is
         rejected, the pose kept and lambda grown ninefold until a step is

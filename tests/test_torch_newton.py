@@ -195,31 +195,59 @@ def test_plain_order_sensitivity(stencil, orders, capsys):
     points in another order, so that its float32 sums round otherwise,
     stops elsewhere: some order tried moves the pose by more than the
     1e-4 a near start is held to (by 0.6-5 mm), and every order stays within
-    trans_eps and two iterations. The test pins torch to one CPU thread:
-    the map build gives the same stats at any thread count (scatter_sum's
-    fixed-order CPU path), but the plain version's own torch reductions
-    split their sums by thread count, so the readings (printed, pytest -s)
-    would follow the thread count a test worker was given, and at some
-    counts no order tried moves the pose past 1e-4."""
+    trans_eps and two iterations. The map build (scatter_sum) and the
+    plain reduction give their one-thread sums at any CPU thread count, so
+    the readings (printed, pytest -s) do not follow the thread count a test
+    worker was given."""
     N = ndt_newton
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        m, src, mask, w = test_torch_cuda._inputs(torch.device("cpu"))
-        args, kw = test_torch_cuda._newton_call(m, src, mask, w, test_torch_cuda.NEWTON_POSES[1], stencil)
-        base = N.ndt_newton_plain(*args, **kw).numpy()
-        readings = []
-        for seed in orders:
-            perm = torch.as_tensor(np.random.default_rng(seed).permutation(len(src)))
-            o = N.ndt_newton_plain(src[perm], mask[perm], w[perm], *args[3:], **kw).numpy()
-            readings.append((int(o[N.ITERATIONS]), float(np.abs(o[N.POSE] - base[N.POSE]).max())))
-    finally:
-        torch.set_num_threads(threads)
+    m, src, mask, w = test_torch_cuda._inputs(torch.device("cpu"))
+    args, kw = test_torch_cuda._newton_call(m, src, mask, w, test_torch_cuda.NEWTON_POSES[1], stencil)
+    base = N.ndt_newton_plain(*args, **kw).numpy()
+    readings = []
+    for seed in orders:
+        perm = torch.as_tensor(np.random.default_rng(seed).permutation(len(src)))
+        o = N.ndt_newton_plain(src[perm], mask[perm], w[perm], *args[3:], **kw).numpy()
+        readings.append((int(o[N.ITERATIONS]), float(np.abs(o[N.POSE] - base[N.POSE]).max())))
     with capsys.disabled():
         print(f"\n[order sensitivity {stencil}] plain {int(base[N.ITERATIONS])} iterations; reordered "
               f"(iterations, max |pose - plain|): {readings}")
     assert all(o[1] <= kw["trans_eps"] and abs(o[0] - base[N.ITERATIONS]) <= 2 for o in readings), readings
     assert max(o[1] for o in readings) > 1e-4, readings
+
+
+@pytest.mark.parametrize("stencil", ["direct7", "radius27"])
+def test_plain_sums_do_not_follow_thread_count(stencil):
+    """ndt_reduce_plain's [32] sums are the same bits at 1, 2 and 8 CPU
+    threads, on 5000 points in three chunks (the far start's pose, where
+    the Hessian sums reach ~1e6), and the bits of each chunk's sums on one
+    thread added in chunk order."""
+    m, src, mask, w = test_torch_cuda._inputs(torch.device("cpu"))
+    pose = torch.as_tensor(np.asarray(test_torch_cuda.NEWTON_POSES[1], np.float32))
+    d1, d2 = test_torch_cuda.CFG.gauss_params()
+    kw = dict(dims=m.dims, resolution=m.resolution, d1=float(np.float32(d1)), d2=float(np.float32(d2)),
+              stencil=stencil, weight_derivatives=True, chunk=2048)
+    args = (src, mask, w, m.index, m.packed, m.origin, *ndt_newton.pose_coefficients(pose))
+    threads = torch.get_num_threads()
+    sums = []
+    try:
+        for n in (1, 2, 8):
+            torch.set_num_threads(n)
+            sums.append(ndt_fused.ndt_reduce_plain(*args, **kw).numpy())
+    finally:
+        torch.set_num_threads(threads)
+    assert np.abs(sums[0][7:28]).max() > 1e5
+    for s in sums[1:]:
+        np.testing.assert_array_equal(s, sums[0])
+    torch.set_num_threads(1)
+    try:
+        parts = [ndt_fused.ndt_reduce_plain(*(a[i:i + 2048] for a in args[:3]), *args[3:], **kw)
+                 for i in range(0, len(src), 2048)]
+    finally:
+        torch.set_num_threads(threads)
+    chained = torch.zeros(32)
+    for p in parts:
+        chained += p
+    np.testing.assert_array_equal(sums[0], chained.numpy())
 
 
 def test_empty_map_keeps_the_guess():
