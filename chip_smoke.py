@@ -8,7 +8,8 @@ half (loop closure, pose-graph optimization, a whole mapping session,
 phases 11-13), map-matching localization, the rebuilt local map with
 session restore, and the LM solver (phases 15-17), and the command-line
 entry point from KITTI files on disk (phase 18), the multi-rank layer
-(phase 19) and the benchmark entry point (phase 20). NDT scan-to-map tracking
+(phase 19), the benchmark entry point (phase 20) and the mapping CLI over
+the endurance drive's first out-and-back (phase 21). NDT scan-to-map tracking
 runs at
 the KITTI HDL-64 operating point of bench.py (raw scans padded to 131 072
 points, frames of <= 32 768 points, 1 m NDT voxels on a 256 x 256 x 64
@@ -155,9 +156,17 @@ grid) on bench.py's aloam_leg world and trajectory, at bench.py's density
      the parity gate and the evaluation probe, K2 10 times an A-LOAM sweep,
      two ndt_newton launches a matching frame); its launches join the
      kernels line's counts; the log carries every drive's iterations and
-     errors a frame, the CPU baseline's among them.
+     errors a frame, the CPU baseline's among them;
+ 21. the endurance harness (endurance_phase): endurance.py's run_mapping,
+     report and check over the first out-and-back of its drive (a 16 m
+     corridor with three trucks, at least 100k returns a sweep, 1.05 m a
+     frame on 130 m legs with a 3 m U-turn; configs/kitti_hdl64.yaml): the mapping
+     CLI with the drive as its frame source, every pose-graph solve, memory
+     samples, the saved map's cut; endurance.py's checks but its keyframe
+     floor, at least ENDURANCE_MIN_LOOPS loop; its launches join the
+     kernels line.
 
-Phases 11-20 print the card's name and power limit on each summary line.
+Phases 11-21 print the card's name and power limit on each summary line.
 
 Any failed check ends the run with a non-zero exit code. The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -1498,22 +1507,57 @@ def matching_kernel_parity(m, frame, predict, res):
     return guess
 
 
-def save_matching_run(path, cfg, traj, frames, gmap, poses, warm):
+def save_matching_run(path, cfg, traj, frames, gmap, poses, warm, loaded, origins, device):
     """Phase 15's inputs and the port's answers for matching_witness.py
     (.npz): the MatchingConfig's fields (JSON), the truth [F, 4, 4], each
     frame's raw points and mask, the global map's points, the FullPose
     init pose (the first truth pose), the port's Matching.update pose of
     every frame and its position error to the truth, and the first frame
-    the pose-error guard covers (the frames before it warm up)."""
+    the pose-error guard covers (the frames before it warm up). Also the
+    port's own inputs to each frame's alignment, for `matching_witness.py
+    --split`: its motion-model guess (Matching.update's, recomputed from
+    the poses), the GPF non-ground mask of its raw rows and the downsampled
+    frame (`matching._frame`, recomputed on `device` from `loaded`), the
+    centre of the local map each frame was aligned against (`origins`) and
+    each such local map's cloud (the crop, voxel filtered: a Matching's
+    reset_local_map at that centre, on `device`)."""
+    import torch
+
+    from lidar_slam_tpu_torch.models.ground_seg import GroundSegConfig, segment_ground
+    from lidar_slam_tpu_torch.ops.pointcloud import PointCloud, finite_mask
+    from lidar_slam_tpu_torch.pipeline import matching as M
+
+    centres, index = np.unique(np.stack(origins).astype(np.float32), axis=0, return_inverse=True)
+    local = M.Matching(cfg, gmap, device=device)
+    clouds = []
+    for c in centres:
+        local.reset_local_map(c)
+        clouds.append((local._local_cloud.points.cpu().numpy(), local._local_cloud.mask.cpu().numpy()))
+
     poses = np.stack([np.asarray(p, np.float32) for p in poses])
     errs = np.linalg.norm(poses[:, :3, 3] - np.asarray(traj)[:len(poses), :3, 3], axis=1)
+    cur, step, predicts = np.asarray(traj[0], np.float32), np.eye(4, dtype=np.float32), []
+    for pose in poses:
+        predicts.append(cur @ step)
+        step, cur = (np.linalg.inv(cur) @ pose).astype(np.float32), pose
+    nonground, ds_pts, ds_msk = [], [], []
+    for pts, msk in loaded[:len(poses)]:
+        mm = msk & finite_mask(pts)
+        nonground.append(segment_ground(PointCloud(points=torch.where(mm[:, None], pts, 0.0), mask=mm),
+                                        GroundSegConfig())[1].cpu().numpy())
+        f = M._frame(pts, msk, cfg)
+        ds_pts.append(f.points.cpu().numpy())
+        ds_msk.append(f.mask.cpu().numpy())
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     np.savez_compressed(
         path, config=json.dumps(dataclasses.asdict(cfg)), gt=np.asarray(traj, np.float32)[:len(poses)],
         frames_pts=np.stack([np.asarray(f[0], np.float32) for f in frames]),
         frames_msk=np.stack([np.asarray(f[1], bool) for f in frames]), global_map=np.asarray(gmap, np.float32),
         init_pose=np.asarray(traj[0], np.float32), port_poses=poses, port_errors=errs.astype(np.float32),
-        guard_from=np.int64(warm),
+        guard_from=np.int64(warm), port_predicts=np.stack(predicts), port_nonground=np.stack(nonground),
+        port_frame_pts=np.stack(ds_pts), port_frame_msk=np.stack(ds_msk),
+        port_local_origins=centres, port_local_index=index.reshape(-1).astype(np.int64),
+        port_local_pts=np.stack([c[0] for c in clouds]), port_local_msk=np.stack([c[1] for c in clouds]),
     )
 
 
@@ -1558,11 +1602,12 @@ def matching_phase(dev, smi, matching_out=None):
     check(max(used) < cfg.ndt.max_compact_voxels, f"matching: compact voxels {used} fill the table")
 
     res = {"max_abs_err": 0.0, "coarse": [], "fine": []}
-    warm_launches, warm_poses = 0, []
+    warm_launches, warm_poses, origins = 0, [], []
     for i in range(MATCH_WARM):
         frame = M._frame(*loaded[i], cfg)
         kernel_pose = matching_kernel_parity(m, frame, m.current_pose @ m.predict_step, res)
         before = N.launches
+        origins.append(m.local_map_origin.copy())
         pose = m.update(None, preloaded=loaded[i])
         warm_launches += N.launches - before
         warm_poses.append(pose)
@@ -1575,7 +1620,10 @@ def matching_phase(dev, smi, matching_out=None):
     reset_launches()
     with counting_syncs() as syncs:
         t0 = time.perf_counter()
-        poses = [m.update(None, preloaded=loaded[i]) for i in range(MATCH_WARM, MATCH_FRAMES)]
+        poses = []
+        for i in range(MATCH_WARM, MATCH_FRAMES):
+            origins.append(m.local_map_origin.copy())
+            poses.append(m.update(None, preloaded=loaded[i]))
         torch.cuda.synchronize()
         dt = (time.perf_counter() - t0) * 1e3 / len(poses)
     n = len(poses)
@@ -1589,7 +1637,7 @@ def matching_phase(dev, smi, matching_out=None):
     check(syncs[0] == 2 * n, f"matching: {syncs[0]} host syncs in {n} frames, expected 2 a frame")
     check(errs.mean() < MATCH_GUARD, f"matching: pose error guard ({errs.mean():.4f} m)")
     if matching_out:
-        save_matching_run(matching_out, cfg, traj, frames, gmap, warm_poses + poses, MATCH_WARM)
+        save_matching_run(matching_out, cfg, traj, frames, gmap, warm_poses + poses, MATCH_WARM, loaded, origins, dev)
         log(f"[matching] inputs and the {len(warm_poses + poses)} Matching.update poses saved to {matching_out}")
 
     pts_seq = torch.stack([loaded[i][0] for i in range(MATCH_WARM, MATCH_FRAMES)])
@@ -2564,6 +2612,42 @@ def bench_phase(smi):
     return {"launches": total, "legs": legs, "lines": by_name, "seconds": seconds, "log": proc.stderr}
 
 
+# Phase 21, the endurance harness on its drive's first out-and-back: at least this many loops
+ENDURANCE_MIN_LOOPS = 1
+
+
+def endurance_phase(work, smi):
+    """Phase 21: endurance.py's harness (run_mapping, report, check) on the
+    first out-and-back of its drive (first_lap_frames: leg A, the U-turn and
+    leg B), with its world, widths and config (configs/kitti_hdl64.yaml,
+    `gather: auto` named): `mapping` through lidar_slam_tpu_torch.cli.main
+    with the drive as its frame source. Every check of endurance.py but its
+    keyframe floor, and ENDURANCE_MIN_LOOPS loops in place of its
+    MIN_LOOPS: exit 0, every loop within LOOP_TOL of the truth with fitness
+    <= 0.2, the optimized keyframes' ATE under 0.5 m, two ndt_newton launches
+    a frame after the first and one a verification attempt, K1, K2 and K3
+    none, the front_end stage's mean under 100 ms, device memory_allocated
+    growing by less than 64 MiB from keyframe 50 to the end, every scan with
+    at least 100k returns. Returns the kernels-line fields."""
+    import endurance as E
+
+    t0 = time.perf_counter()
+    drive = E.endurance_drive()
+    n = E.first_lap_frames(drive)
+    os.makedirs(work, exist_ok=True)
+    config = os.path.join(work, "config.yaml")
+    with open(config, "w") as f:
+        f.write(E.config_text())
+    run = E.run_mapping(drive, os.path.join(work, "map"), config, n_frames=n)
+    rep = E.report(run, drive)
+    E.print_report(rep, " phase 21")
+    fails = E.check(rep, min_keyframes=0, min_loops=ENDURANCE_MIN_LOOPS)
+    log(f"[endurance phase 21] {n} frames of {len(drive)}: {time.perf_counter() - t0:.1f} s with the world's "
+        f"build ({smi})")
+    check(not fails, f"endurance, first out-and-back: {fails}")
+    return {"launches": run.launches["ndt_newton"], "keyframes": rep["keyframes"], "loops": len(rep["loops"])}
+
+
 def reset_launches():
     from lidar_slam_tpu_torch.ops.cuda import knn_fused, ndt_fused, ndt_gather, ndt_newton
 
@@ -2702,6 +2786,11 @@ def main(argv=None) -> int:
     bench = bench_phase(smi)
     log(f"[launches] the bench: {bench['launches']} ({smi})")
 
+    # this slice's path: the mapping CLI over the endurance drive's first out-and-back; counts reset inside
+    endurance = endurance_phase(os.path.join(work, "endurance"), smi)
+    shutil.rmtree(work, ignore_errors=True)
+    log(f"[launches] ndt_newton: {endurance['launches']} in the endurance drive's first out-and-back ({smi})")
+
     d7, r27 = parity["direct7"], parity["radius27"]
     n7, n27 = newton["direct7"], newton["radius27"]
     k2 = next(c for c in knn if c["density"] == f"{DENSE:g}" and c["case"] == "odometry")
@@ -2715,7 +2804,7 @@ def main(argv=None) -> int:
             "replaces_loop": "lidar_slam_tpu/models/registration/ndt.py:1407",
             "launches": launches_drive + launches_front + loop["launches"] + session["launches"]
             + session["launches_drift"] + matching["launches"] + rebuilt["launches"] + cli["launches"]
-            + bench["launches"]["ndt_newton"],
+            + bench["launches"]["ndt_newton"] + endurance["launches"],
             "max_abs_err": max(n7["max_abs_err"], n27["max_abs_err"], loop["max_abs_err"], matching["max_abs_err"]),
             "ms": n7["ms"],
             "plain_ms": n7["plain_ms"],
@@ -2751,6 +2840,7 @@ def main(argv=None) -> int:
             "launches_cli_mapping": cli["launches_mapping"],
             "launches_cli_matching": cli["launches_matching"],
             "launches_bench": bench["launches"]["ndt_newton"],
+            "launches_endurance": endurance["launches"],
         },
         {
             "name": "ndt_reduce_fused",

@@ -82,7 +82,11 @@ class Viewer:
                 )
 
     # -- map assembly -------------------------------------------------------
-    def _joint_map(self, indices, leaf: float) -> np.ndarray:
+    def _joint_map(self, indices, leaf: float):
+        """The keyframes' clouds in their corrected poses, cut at
+        `map_capacity` points before the voxel filter as the JAX viewer cuts
+        them (pipeline/viewer.py:88 there), then filtered at `leaf` (None:
+        unfiltered). Returns (points, the points offered before the cut)."""
         pts = []
         for i in indices:
             rec = self.store.load(i)
@@ -90,23 +94,24 @@ class Viewer:
             p = rec["points"][rec["mask"]]
             pts.append(p @ T[:3, :3].T + T[:3, 3])
         if not pts:
-            return np.zeros((0, 3), np.float32)
+            return np.zeros((0, 3), np.float32), 0
         allp = np.concatenate(pts).astype(np.float32)
+        offered = len(allp)
         allp = allp[: self.cfg.map_capacity]
         if leaf is None:  # unfiltered map: raw concatenation (viewer.cpp:193-205)
-            return allp
+            return allp, offered
         cloud = PointCloud.from_points(allp, device=self.device)
         out = voxel_downsample(cloud, leaf, out_capacity=cloud.capacity)
-        return out.points[out.mask].cpu().numpy()
+        return out.points[out.mask].cpu().numpy(), offered
 
     def get_local_map(self) -> np.ndarray:
         n = len(self.corrected_poses)
         lo = max(0, n - self.cfg.local_frame_num)
-        return self._joint_map(range(lo, n), self.cfg.local_map_leaf)
+        return self._joint_map(range(lo, n), self.cfg.local_map_leaf)[0]
 
     def get_global_map(self, filtered: bool = True) -> np.ndarray:
         leaf = self.cfg.global_map_leaf if filtered else None
-        return self._joint_map(range(len(self.corrected_poses)), leaf)
+        return self._joint_map(range(len(self.corrected_poses)), leaf)[0]
 
     def save_trajectory_plot(self, path: str, gt_poses=None) -> None:
         """Top-down trajectory (+map) plot — the offline stand-in for the
@@ -136,10 +141,14 @@ class Viewer:
 
     def save_map(self) -> dict:
         """SaveMap (viewer.cpp:193-215): write map + filtered map + the
-        optimized trajectory next to the keyframe store."""
+        optimized trajectory next to the keyframe store. The files are the
+        JAX viewer's; the returned counts add `map_capacity_dropped`, the
+        points the `map_capacity` cut left out of both maps (the JAX viewer
+        drops them without a word; the C++ viewer joins every keyframe)."""
         out = {}
-        gmap = self.get_global_map(filtered=False)
-        fmap = self.get_global_map(filtered=True)
+        every = range(len(self.corrected_poses))
+        gmap, offered = self._joint_map(every, None)
+        fmap, _ = self._joint_map(every, self.cfg.global_map_leaf)
         np.savez_compressed(os.path.join(self.store.map_dir, "map.npz"), points=gmap)
         np.savez_compressed(os.path.join(self.store.map_dir, "filtered_map.npz"), points=fmap)
         write_pcd(os.path.join(self.store.map_dir, "map.pcd"), gmap)
@@ -153,4 +162,5 @@ class Viewer:
             )
         out["map_points"] = len(gmap)
         out["filtered_map_points"] = len(fmap)
+        out["map_capacity_dropped"] = offered - len(gmap)
         return out

@@ -514,10 +514,13 @@ def test_config_errors_and_overrides(tmp_path):
 
 
 # -- viewer -------------------------------------------------------------------
-def test_viewer_matches(tmp_path):
+@pytest.mark.parametrize("map_capacity", [1 << 21, 5000])
+def test_viewer_matches(tmp_path, map_capacity):
     """Both viewers over one keyframe store (written once; the stores share
     a file format): the local and global maps, the pose correction, write_pcd
-    and save_map's files."""
+    and save_map's files, at the default map_capacity and at one that cuts
+    the joint map. The port's save_map also reports the points the cut
+    dropped (map_capacity_dropped; the JAX viewer drops them silently)."""
     rng = np.random.default_rng(8)
     world = SyntheticWorld.corridor(length=30, seed=2)
     gt = make_hairpin_trajectory(n_out=3, n_turn=2, n_back=1, speed=2.0, turn_radius=1.0)
@@ -526,7 +529,8 @@ def test_viewer_matches(tmp_path):
         pts, mask, _ = simulate_scan(world, gt[i], n_points=3000, max_range=20.0, seed=i)
         store_t.save(i, pts, mask, gt[i], time=0.1 * i)
     store_j = jks.KeyframeStore(str(tmp_path / "t"), resume=True)
-    cfg = dict(local_frame_num=3, local_map_leaf=0.3, global_map_leaf=0.5)
+    cfg = dict(local_frame_num=3, local_map_leaf=0.3, global_map_leaf=0.5, map_capacity=map_capacity)
+    offered = sum(int(store_t.load(i)["mask"].sum()) for i in range(len(gt)))
     vj = jviewer.Viewer(jviewer.ViewerConfig(**cfg), store_j)
     vt = tviewer.Viewer(tviewer.ViewerConfig(**cfg), store_t, device="cpu")
     odom = gt.astype(np.float32) @ np.float32([[1, -0.01, 0, 0.05], [0.01, 1, 0, 0], [0, 0, 1, 0], [0, 0, 0, 1]])
@@ -552,7 +556,9 @@ def test_viewer_matches(tmp_path):
     files_t = {f: open(os.path.join(store_t.map_dir, f), "rb").read() for f in sorted(os.listdir(store_t.map_dir))}
     traj_t = np.loadtxt(os.path.join(store_t.traj_dir, "viewer_optimized.txt"))
     out_j = vj.save_map()
+    assert out_t.pop("map_capacity_dropped") == max(0, offered - map_capacity)
     assert out_t == out_j
+    assert out_j["map_points"] == min(offered, map_capacity)
     assert sorted(files_t) == sorted(os.listdir(store_j.map_dir)) == [
         "filtered_map.npz", "filtered_map.pcd", "map.npz", "map.pcd"]
     for name in ("map", "filtered_map"):

@@ -212,7 +212,9 @@ def test_matching_witness_replays_the_port(scene, tmp_path, capsys):
     port's Matching over this file's scene, at its sizes with gather
     "auto", replayed by matching_witness.py through the JAX Matching: the
     same frames, both packages under the guard, every frame's errors and
-    the largest gap printed."""
+    the largest gap printed; and `--split` at two frames: the same GPF
+    masks, downsampled frames and local map rows, and the JAX alignment of
+    the port's inputs within POSE_TOL of the port's pose."""
     import chip_smoke
     import matching_witness
 
@@ -220,10 +222,93 @@ def test_matching_witness_replays_the_port(scene, tmp_path, capsys):
     cfg = dataclasses.replace(CFG_T, ndt=dataclasses.replace(CFG_T.ndt, gather="auto"))
     m = tm.Matching(cfg, gmap, device="cpu")
     m.set_gnss_pose(gt[0])
-    poses = [m.update(pts, mask) for pts, mask in frames]
+    loaded = [m.preload(pts, mask) for pts, mask in frames]
+    poses, origins = [], []
+    for x in loaded:
+        origins.append(m.local_map_origin.copy())
+        poses.append(m.update(None, preloaded=x))
     path = tmp_path / "matching.npz"
-    chip_smoke.save_matching_run(str(path), cfg, gt, frames, gmap, poses, 3)
-    assert matching_witness.main([str(path)]) == 0
+    chip_smoke.save_matching_run(str(path), cfg, gt, frames, gmap, poses, 3, loaded, origins, "cpu")
+    assert matching_witness.main([str(path), "--split", "0", "4"]) == 0
     out = capsys.readouterr().out
     assert f"{N_FRAMES} frames from the port, {N_FRAMES} poses from JAX (the same frames)" in out
     assert "[port] mean error" in out and "[jax] mean error" in out and "largest per-frame gap" in out
+    # the split: the same local map rows and, frame by frame, the port's inputs through the JAX alignment
+    maps = [ln for ln in out.splitlines() if ln.startswith("[split] local map at")]
+    assert maps and all("the same rows, largest point gap 0.00e+00 m" in ln for ln in maps)
+    rows = [ln.split() for ln in out.splitlines() if ln[:5].strip() in ("0", "4") and "/" in ln]
+    assert [r[0] for r in rows] == ["0", "4"]
+    for r in rows:
+        assert int(r[1]) == 0 and r[2] == r[4]  # the GPF masks and the downsampled frames' counts agree
+        assert float(r[7]) <= POSE_TOL  # the JAX alignment of the port's inputs
+
+
+# ROADMAP C.5's frame: chip_smoke.py phase 15's frame 7 (matching_workload, MatchingConfig() widths) and the
+# port's motion-model guess there on an H100 (its --matching-out record)
+C5_FRAME = 7
+C5_GUESS = np.float32([[0.9999929666519165, 0.00011408807040425017, 0.0037168138660490513, 7.084327697753906],
+                       [-0.00011710901890182868, 0.9999996423721313, 0.0008125637541525066, -0.0020046881400048733],
+                       [-0.003716719802469015, -0.0008129941998049617, 0.9999927282333374, 1.6661827564239502],
+                       [0.0, 0.0, 0.0, 1.0]])
+
+
+def test_full_size_gap_is_the_capped_coarse_stage():
+    """ROADMAP C.5 pinned at its frame. At full size both packages
+    preprocess the frame to the same bits (the GPF, the downsample, the
+    local map crop), but the coarse 2 m alignment from the port's guess runs
+    to its max(5, max_iter // 3) = 10-iteration cap without converging in
+    both, and where a capped alignment stops depends on float32 rounding:
+    the two coarse poses land more than trans_eps apart, and the frame's
+    final poses by millimetres to centimetres. From one coarse pose the two
+    fine alignments agree within 1e-4 m. The JAX frame step hands the unconverged coarse pose on
+    unchecked (lidar_slam_tpu/pipeline/matching.py:90-95); the port copies
+    it."""
+    import chip_smoke
+    from lidar_slam_tpu.models.registration import ndt_align as j_align
+    from lidar_slam_tpu.ops.pointcloud import PointCloud as JCloud
+
+    from lidar_slam_tpu_torch.io import SyntheticWorld as TWorld
+    from lidar_slam_tpu_torch.io import make_trajectory as t_trajectory
+    from lidar_slam_tpu_torch.io import simulate_spinning_scan
+    from lidar_slam_tpu_torch.models.registration import ndt_align as t_align
+
+    world = TWorld.corridor(length=120.0, width=18.0, density=chip_smoke.DENSE, seed=5)
+    gt = t_trajectory(chip_smoke.MATCH_FRAMES, speed=1.0)
+    pts, msk = simulate_spinning_scan(world, gt[C5_FRAME], t=C5_FRAME * 0.1, n_scans=64, n_azimuth=2048,
+                                      seed=700 + C5_FRAME)[:2]
+    gm = tm.voxel_downsample(TCloud.from_points(world.points), chip_smoke.GLOBAL_MAP_LEAF)
+    gmap = _np(gm.points)[_np(gm.mask)]
+    del world
+    cfg_t, cfg_j = tm.MatchingConfig(), jm.MatchingConfig()
+    mt, mj = tm.Matching(cfg_t, gmap, device="cpu"), jm.Matching(cfg_j, gmap)
+    eps = cfg_t.ndt.trans_eps
+
+    # the same inputs: the local map and the frame (GPF and downsample), bit for bit, at the card's counts
+    np.testing.assert_array_equal(_np(mt._local_cloud.mask), np.asarray(mj._local_cloud.mask))
+    np.testing.assert_array_equal(_np(mt._local_cloud.points), np.asarray(mj._local_cloud.points))
+    frame_t = tm._frame(*mt.preload(pts, msk), cfg_t)
+    pj, mjj = mj.preload(pts, msk)
+    fj_pts, fj_msk, pose_j, _ = jm._match_step(mj.ndt_map, mj.coarse_ndt_map, pj, mjj, jnp.asarray(C5_GUESS), cfg_j,
+                                               mj._coarse_cfg())
+    np.testing.assert_array_equal(_np(frame_t.mask), np.asarray(fj_msk))
+    np.testing.assert_array_equal(_np(frame_t.points), np.asarray(fj_pts))
+    assert int(frame_t.mask.sum()) == 1623 and int(mt._local_cloud.mask.sum()) == 25176
+
+    # the coarse stage: capped, unconverged, and apart
+    ccfg_t, ccfg_j = mt._coarse_cfg(), mj._coarse_cfg()
+    assert ccfg_t.max_iter == ccfg_j.max_iter == 10
+    frame_j = JCloud(points=fj_pts, mask=fj_msk)
+    rc_t = t_align(mt.coarse_ndt_map, frame_t, torch.as_tensor(C5_GUESS), ccfg_t)
+    rc_j = j_align(mj.coarse_ndt_map, frame_j, jnp.asarray(C5_GUESS), ccfg_j)
+    assert not bool(rc_t.converged) and not bool(rc_j.converged)
+    assert int(rc_t.iterations) == int(rc_j.iterations) == ccfg_t.max_iter + 1
+    coarse_t, coarse_j = _np(rc_t.pose), np.asarray(rc_j.pose)
+    assert np.linalg.norm(coarse_t[:3, 3] - coarse_j[:3, 3]) > eps
+
+    # the fine stage: from one coarse pose the packages agree; from their own they part (4.2 mm on an x86
+    # CPU, 2.1 cm on an H100)
+    fine_t = _np(t_align(mt.ndt_map, frame_t, rc_t.pose, cfg_t.ndt).pose)
+    fine_j_same = np.asarray(j_align(mj.ndt_map, frame_j, jnp.asarray(coarse_t), cfg_j.ndt).pose)
+    assert np.linalg.norm(fine_t[:3, 3] - fine_j_same[:3, 3]) <= 1e-4
+    np.testing.assert_allclose(np.asarray(pose_j), np.asarray(j_align(mj.ndt_map, frame_j, rc_j.pose, cfg_j.ndt).pose))
+    assert np.linalg.norm(fine_t[:3, 3] - np.asarray(pose_j)[:3, 3]) > 1e-3
