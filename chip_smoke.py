@@ -48,7 +48,9 @@ grid) on bench.py's aloam_leg world and trajectory, at bench.py's density
      left), every key equal with the queries sorted and in a random order,
      no host sync and one kernel and no copy a call, with the wrapper's,
      the kernel's and the plain version's device times;
-  8. K3 against its plain version on phase 3's NDT map and one frame's
+  8. a map build (finalize_ndt_sums, which ends with the keys' order
+     check, a device-side assert) with no host sync; K3 against its plain
+     version on phase 3's NDT map and one frame's
      voxel ids (direct7, radius27), exact, through both entries: the
      presorted one on the map's keys (no host sync; one kernel and nothing
      else, torch.profiler) and the general one, which sorts the keys; the
@@ -147,7 +149,11 @@ grid) on bench.py's aloam_leg world and trajectory, at bench.py's density
      2 048-node circle and the Schur solve on its 366-node one against the
      single-rank optimizer; front_end_drive(mesh=) over phase 6's frames
      against the single-rank drive and the truth; the dry run
-     (parallel/dryrun.py). Wall ms of each beside the unsharded function's;
+     (parallel/dryrun.py). Wall ms of each beside the unsharded function's.
+     With `--parallel-out FILE` the local map's keyframes, grid corner,
+     frame and guess and both of the port's maps (one rank and two) are
+     saved for parallel_witness.py, which builds the JAX one- and
+     two-device maps of the same keyframes and aligns on each;
  20. the benchmark entry point (bench_phase): `python3 -m
      lidar_slam_tpu_torch bench` in its own process: exit 0, bench.py's
      metric lines each once with the card's name and power limit, the
@@ -910,7 +916,8 @@ def gather_work(keys, vids):
 
 
 def gather_parity(workload, cfg):
-    """Phase 8: K3 against its plain version on phase 3's NDT map and one
+    """Phase 8: a map build's key-order check makes no host sync; K3
+    against its plain version on phase 3's NDT map and one
     frame's voxel ids (gather_cases), both entries: the presorted one on the
     map's keys (one kernel, no sort, no host sync) and the general one,
     which sorts the keys first. Exact. Returns {stencil: fields of the
@@ -918,10 +925,23 @@ def gather_parity(workload, cfg):
     alone (torch.profiler), the plain version's, the bound."""
     import torch
 
+    from lidar_slam_tpu_torch.models.registration import empty_ndt_sums, finalize_ndt_sums, scatter_to_sums
     from lidar_slam_tpu_torch.ops.cuda import ndt_gather
 
     ndt_map, cases = gather_cases(workload, cfg)
     keys, table = ndt_map.keys, ndt_map.packed
+    # every map build ends with the keys' order check (a device-side assert): no host sync
+    map_cloud = workload[0]
+    sums = scatter_to_sums(empty_ndt_sums(ndt_map.origin, cfg, device=keys.device), map_cloud.points,
+                           map_cloud.mask, map_cloud.get_weights())
+    track_cfg = dataclasses.replace(cfg, dense_stats=False)
+    finalize_ndt_sums(sums, track_cfg)
+    with counting_syncs() as syncs:
+        rebuilt = finalize_ndt_sums(sums, track_cfg)
+    check(syncs[0] == 0 and torch.equal(rebuilt.keys, keys),
+          f"K3: a map build with its key-order check made {syncs[0]} host syncs (keys equal: "
+          f"{torch.equal(rebuilt.keys, keys)})")
+    log("[parity K3] a map build (finalize_ndt_sums, its key-order check included): no host sync")
     out = {}
     for stencil, vids in cases.items():
         def sorted_call():
@@ -2274,10 +2294,12 @@ def converged_gap(res, ref):
     return max(gaps, default=0.0), len(both)
 
 
-def mesh_phase(workload, loaded, traj, smi):
+def mesh_phase(workload, loaded, traj, smi, parallel_out=None):
     """Phase 19 (see the module docstring): mesh_rank on one rank under
     NCCL, then on two gloo ranks sharing the card; the inputs go to the
-    ranks as host arrays. Returns {world size: rank 0's results}."""
+    ranks as host arrays. With `parallel_out`, rank 0 of the two saves the
+    local map's inputs and both maps there (save_local_maps). Returns
+    {world size: rank 0's results}."""
     import torch
 
     from lidar_slam_tpu_torch.parallel.launch import launch
@@ -2287,7 +2309,7 @@ def mesh_phase(workload, loaded, traj, smi):
         map_pts=map_cloud.points[map_cloud.mask].cpu().numpy(), frames_pts=all_pts.cpu().numpy(),
         frames_msk=all_msk.cpu().numpy(), gt=gt, guess0=guess0,
         fe_pts=np.stack([p.cpu().numpy() for p, _ in loaded]), fe_msk=np.stack([m.cpu().numpy() for _, m in loaded]),
-        fe_traj=traj,
+        fe_traj=traj, parallel_out=parallel_out,
     )
     torch.cuda.empty_cache()
     out = {}
@@ -2471,6 +2493,10 @@ def mesh_rank(mesh, inp, smi):
                                   reps=reps)
     say(f"sharded_build_local_map ({N_FRAMES} keyframes x {FRAME_CAP} points, {int(lm.valid.sum())} valid "
         f"voxels): {out['local_map_ms']:.1f} ms (wall); max |diff| {gaps_l}, the same bits: {bits_l}")
+    if lead and world == 2 and inp.get("parallel_out"):
+        save_local_maps(inp["parallel_out"], (kf, kf_m, kf_w, poses, valid, origin_l), frames[0], guesses[0], cfg,
+                        build_ndt_map(flat, cfg, origin=origin_l), lm)
+        say(f"the local map's inputs and both maps saved to {inp['parallel_out']}")
 
     # the pose graphs: phase 12's circles
     rng_g = np.random.default_rng(0)
@@ -2546,6 +2572,28 @@ def mesh_rank(mesh, inp, smi):
         f"PCG chi2 {dry['pcg_chi2'][0]:.2f} -> {dry['pcg_chi2'][1]:.4f}, Schur chi2 {dry['schur_chi2'][0]:.2f} -> "
         f"{dry['schur_chi2'][1]:.4f}")
     return out
+
+
+def save_local_maps(path, keyframes, frame, guess, cfg, one_rank, two_ranks):
+    """Phase 19's local map for parallel_witness.py (.npz): the keyframes
+    (points, masks, weights, poses, valid flags), the grid corner, the
+    frame and guess its alignment starts from, the NDT config, and the
+    one-rank map (build_ndt_map) and the two-rank map (sharded_build_local_map):
+    keys, packed rows, and the port's alignment on each from the guess."""
+    from lidar_slam_tpu_torch.models.registration import ndt_align
+
+    kf, kf_m, kf_w, poses, valid, origin = keyframes
+    maps = {}
+    for name, m in (("one_rank", one_rank), ("two_ranks", two_ranks)):
+        r = ndt_align(m, frame, guess, cfg)
+        maps.update({f"{name}_keys": m.keys.cpu().numpy(), f"{name}_packed": m.packed.cpu().numpy(),
+                     f"{name}_pose": r.pose.numpy(), f"{name}_converged": r.converged,
+                     f"{name}_iterations": r.iterations})
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    np.savez_compressed(path, kf_points=kf.cpu().numpy(), kf_mask=kf_m.cpu().numpy(), kf_weights=kf_w.cpu().numpy(),
+                        kf_poses=np.asarray(poses, np.float32), kf_valid=np.asarray(valid), origin=np.asarray(origin),
+                        frame_points=frame.points.cpu().numpy(), frame_mask=frame.mask.cpu().numpy(),
+                        guess=np.asarray(guess, np.float32), ndt=json.dumps(dataclasses.asdict(cfg)), **maps)
 
 
 def bench_phase(smi):
@@ -2663,6 +2711,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch / CUDA port on one GPU.")
     ap.add_argument("--session-out", help="save phase 13's runs (.npz) for session_witness.py")
     ap.add_argument("--matching-out", help="save phase 15's inputs and poses (.npz) for matching_witness.py")
+    ap.add_argument("--parallel-out", help="save phase 19's local map, its inputs and both of the port's maps "
+                    "(.npz) for parallel_witness.py")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -2777,7 +2827,7 @@ def main(argv=None) -> int:
 
     # this slice's paths: the multi-rank layer, in rank processes whose
     # counts start at 0 and are reset inside
-    mesh = mesh_phase(workload, loaded_front, traj_front, smi)
+    mesh = mesh_phase(workload, loaded_front, traj_front, smi, args.parallel_out)
     k1_mesh = {w: sum(r["k1_align"]) + sum(r["k1_drive"]) for w, r in mesh.items()}
     log(f"[launches] K1: {k1_mesh[1]} in the sharded paths on one rank, {k1_mesh[2]} on two "
         f"({mesh[2]['k1_align']} and {mesh[2]['k1_drive']} by rank in the alignments and the drives) ({smi})")

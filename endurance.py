@@ -600,16 +600,20 @@ def motion_errors(poses, gt) -> np.ndarray:
     return np.concatenate([[0.0], np.linalg.norm(step(P) - step(G), axis=1)])
 
 
-def replay_front_end(drive: Drive, record, frame: int, device: str = "cpu", before: int = LOST_REPLAY) -> list:
+def replay_front_end(drive: Drive, record, frame: int, device: str = "cpu", before: int = LOST_REPLAY,
+                     state_out: str = None) -> list:
     """The port's FrontEnd, configured by the record's config file and
     started with an empty map at the run's odometry `before` frames ahead of
     `frame`, over the drive's frames up to frame + 1: (frame, the replay's
     motion error, the run's) for each. endurance_witness.py --front-end
-    replays the same through the JAX FrontEnd."""
+    replays the same through the JAX FrontEnd. With `state_out`, saves the
+    front end's state at `frame` (save_front_end_state) for
+    front_end_witness.py."""
     import tempfile
 
     from lidar_slam_tpu_torch.config import load_config
     from lidar_slam_tpu_torch.pipeline import FrontEnd
+    from lidar_slam_tpu_torch.pipeline import front_end as fe_module
 
     k0, k1 = frame - before, frame + 2
     if not np.array_equal(record["gt"][k0:k1], drive.gt[k0:k1]):
@@ -621,12 +625,85 @@ def replay_front_end(drive: Drive, record, frame: int, device: str = "cpu", befo
         cfg = load_config(path)
     fe = FrontEnd(cfg.front_end, device=device)
     fe.set_init_pose(record["odom"][k0])
+    updates, tracked = [], []
+    update, track = fe_module._incremental_map_update, fe_module._track_step
+
+    def recording_update(*args):
+        # (fine_sums, old_world, old_mask, old_weights, kf_points, kf_mask, kf_weights, pose, new_origin, cfgs)
+        _, _, old_mask, _, kf_points, kf_mask, kf_weights, pose, new_origin = args[:9]
+        updates.append(dict(points=kf_points.cpu().numpy(), mask=kf_mask.cpu().numpy(),
+                            weights=kf_weights.cpu().numpy(), pose=np.asarray(pose, np.float32),
+                            origin=np.asarray(new_origin, np.float32), evicts=bool(old_mask.any())))
+        return update(*args)
+
+    def recording_track(*args, **kwargs):
+        tracked[:] = [track(*args, **kwargs)]
+        return tracked[0]
+
     poses = []
-    for i in range(k0, k1):
-        pts, mask, boxes = drive.scan(i)
-        poses.append(fe.update(pts[mask], bboxes=boxes)[0])
+    try:
+        if state_out:
+            fe_module._incremental_map_update, fe_module._track_step = recording_update, recording_track
+        for i in range(k0, k1):
+            pts, mask, boxes = drive.scan(i)
+            if state_out and i == frame:
+                before_frame = dict(fine_map=fe.ndt_map, coarse_map=fe.coarse_ndt_map, fine_sums=fe.fine_sums,
+                                    guess=fe.predict_pose.copy(), n_updates=len(updates))
+            poses.append(fe.update(pts[mask], bboxes=boxes)[0])
+            if state_out and i == frame:
+                before_frame["track"] = tracked[0]
+    finally:
+        fe_module._incremental_map_update, fe_module._track_step = update, track
+    if state_out:
+        save_front_end_state(state_out, fe, before_frame, updates, poses[-3:-1], drive.gt[frame - 1:frame + 1], record,
+                             frame)
     mine, run = motion_errors(poses, drive.gt[k0:k1]), motion_errors(record["odom"][k0:k1], drive.gt[k0:k1])
     return [(k0 + j, float(mine[j]), float(run[j])) for j in range(k1 - k0)]
+
+
+def save_front_end_state(path, fe, at, updates, poses, gt, record, frame) -> None:
+    """The front end's state at the start of `frame`, as front_end_witness.py
+    reads it: the frame's preprocessed points and mask (`_track_step`'s),
+    the motion-model guess, the port's coarse and fine poses from it, the
+    poses of frame - 1 and frame and the truth's, the coarse and fine maps
+    (origin, keys, packed rows) and the fine sums (count, psum, ppsum and
+    wsum of their nonzero voxels),
+    and the inputs of every `_incremental_map_update` applied before the
+    frame: each keyframe's points, weights and mask (the masked rows
+    only), pose and new grid corner, and whether it evicted a keyframe.
+    Also the record's config file and drive."""
+    import torch
+
+    from lidar_slam_tpu_torch.models.registration import ndt_align
+    from lidar_slam_tpu_torch.ops import PointCloud
+    from lidar_slam_tpu_torch.pipeline.front_end import coarse_tracking_cfg
+
+    f_pts, f_mask, fine_pose, _ = at["track"]
+    coarse_cfg = coarse_tracking_cfg(fe.cfg.ndt)
+    coarse_pose = ndt_align(at["coarse_map"], PointCloud(points=f_pts, mask=f_mask), at["guess"], coarse_cfg).pose
+    ups = updates[:at["n_updates"]]
+    sums = at["fine_sums"]
+    dense = torch.cat([sums.count[:, None], sums.psum, sums.ppsum, sums.wsum[:, None]], dim=1).cpu().numpy()
+    nz = np.flatnonzero(np.any(dense != 0, axis=1))
+    maps = {}
+    for name in ("fine", "coarse"):
+        m = at[f"{name}_map"]
+        maps.update({f"{name}_origin": m.origin.numpy(), f"{name}_keys": m.keys.cpu().numpy(),
+                     f"{name}_packed": m.packed.cpu().numpy(), f"{name}_dims": np.asarray(m.dims),
+                     f"{name}_resolution": np.float32(m.resolution)})
+    masks = np.stack([u["mask"] for u in ups])
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    np.savez_compressed(
+        path, frame=frame, frame_points=f_pts.cpu().numpy(), frame_mask=f_mask.cpu().numpy(), guess=at["guess"],
+        coarse_pose=np.asarray(coarse_pose, np.float32), fine_pose=np.asarray(fine_pose, np.float32),
+        poses=np.asarray(poses, np.float32), gt=np.asarray(gt, np.float32), **maps,
+        sums_origin=sums.origin.numpy(), sums_dims=np.asarray(sums.dims), sums_resolution=np.float32(sums.resolution),
+        sums_vid=nz.astype(np.int64), sums=dense[nz],
+        kf_pose=np.stack([u["pose"] for u in ups]), kf_origin=np.stack([u["origin"] for u in ups]),
+        kf_evicts=np.asarray([u["evicts"] for u in ups]), kf_mask=np.packbits(masks, axis=1),
+        kf_capacity=masks.shape[1], kf_points=np.concatenate([u["points"][u["mask"]] for u in ups]),
+        kf_weights=np.concatenate([u["weights"][u["mask"]] for u in ups]),
+        config=np.asarray(str(record["config"])), drive=np.asarray(str(record["drive"])))
 
 
 def main(argv=None) -> int:
@@ -638,6 +715,8 @@ def main(argv=None) -> int:
     ap.add_argument("--replay-front-end", type=int, metavar="FRAME", help="with --record: replay_front_end up to "
                     "FRAME (a lost frame) from --before frames ahead of it, on --device (default cpu)")
     ap.add_argument("--before", type=int, default=LOST_REPLAY, help="with --replay-front-end: frames before FRAME")
+    ap.add_argument("--state-out", metavar="F", help="with --replay-front-end: save the front end's state at FRAME "
+                    "(.npz, e.g. under build/) for front_end_witness.py")
     ap.add_argument("--record", help="a record endurance.py --out wrote")
     args = ap.parse_args(argv)
     import shutil
@@ -646,7 +725,7 @@ def main(argv=None) -> int:
 
     if args.replay_front_end is not None:
         rows = replay_front_end(endurance_drive(), np.load(args.record), args.replay_front_end, args.device or "cpu",
-                                args.before)
+                                args.before, args.state_out)
         for i, mine, run in rows:
             print(f"[replay] frame {i}: motion error {mine:.4f} m replayed, {run:.4f} m in the run"
                   + ("  <- lost" if max(mine, run) > LOST_STEP else ""))

@@ -75,6 +75,26 @@ def replay(data):
     return be, kf_frames, solves
 
 
+def drive_sweeps(drive_json):
+    """sweep(i, pose) -> frame i's (points, mask, boxes), simulated with the
+    JAX package's copy of the synthetic world from a record's drive
+    parameters and seeds, as endurance.py simulates them."""
+    import json
+
+    from lidar_slam_tpu.io.synthetic import SyntheticWorld, simulate_scan
+
+    p = json.loads(drive_json)
+    world = SyntheticWorld.corridor(length=p["length"], width=p["width"], density=p["density"], seed=p["seed"])
+    for center, heading, velocity in p["trucks"]:
+        world.add_moving_box(center0=center, size=(4.0, 2.0, 2.0), heading=heading, velocity=velocity, n_points=200)
+
+    def sweep(i, pose):
+        return simulate_scan(world, pose, t=i * 0.1, max_range=p["max_range"], n_points=p["n_points"],
+                             seed=p["scan_seed"] + i, noise=0.02)
+
+    return sweep
+
+
 def replay_front_end(data, frame, before=20):
     """The JAX FrontEnd, configured by the record's config file and started
     with an empty map at the port's odometry `before` frames ahead of
@@ -83,16 +103,9 @@ def replay_front_end(data, frame, before=20):
     parameters and seeds, as endurance.py simulates them): (frame, its
     motion error, the port's run's) for each, m. endurance.py
     --replay-front-end replays the same through the port's FrontEnd."""
-    import json
-
     from lidar_slam_tpu.config import load_config
-    from lidar_slam_tpu.io.synthetic import SyntheticWorld, simulate_scan
     from lidar_slam_tpu.pipeline.front_end import FrontEnd
 
-    p = json.loads(str(data["drive"]))
-    world = SyntheticWorld.corridor(length=p["length"], width=p["width"], density=p["density"], seed=p["seed"])
-    for center, heading, velocity in p["trucks"]:
-        world.add_moving_box(center0=center, size=(4.0, 2.0, 2.0), heading=heading, velocity=velocity, n_points=200)
     with tempfile.TemporaryDirectory() as d:
         path = os.path.join(d, "config.yaml")
         with open(path, "w") as f:
@@ -101,10 +114,10 @@ def replay_front_end(data, frame, before=20):
     k0, k1 = frame - before, frame + 2
     gt = data["gt"]
     fe.set_init_pose(data["odom"][k0])
+    sweep = drive_sweeps(str(data["drive"]))
     poses = []
     for i in range(k0, k1):
-        pts, mask, boxes = simulate_scan(world, gt[i], t=i * 0.1, max_range=p["max_range"], n_points=p["n_points"],
-                                         seed=p["scan_seed"] + i, noise=0.02)
+        pts, mask, boxes = sweep(i, gt[i])
         poses.append(np.asarray(fe.update(pts[mask], bboxes=boxes)[0]))
 
     def motion(P):

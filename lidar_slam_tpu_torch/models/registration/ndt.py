@@ -38,6 +38,7 @@ import torch
 
 from ...geom.se3 import euler_xyz_to_matrix, make_pose, matrix_to_euler_xyz
 from ...ops.cuda import ndt_newton as _newton
+from ...ops.cuda.ndt_gather import assert_keys_ascend
 from ...ops.cuda.ndt_fused import ndt_reduce_fused, ndt_reduce_plain, unpack_results
 from ...ops.eigh3 import sym_eigh3
 from ...ops.pointcloud import PointCloud, scatter_sum
@@ -109,8 +110,10 @@ class NDTMap:
     Invariant: `keys` ascend in unsigned order. The occupied voxels' flat
     ids rise strictly, then -1 (0xFFFFFFFF unsigned) fills the tail, so
     compact row j is the j-th key in that order and K3 looks ids up with no
-    sort (`ndt_gather.gather_stats_sorted`). `finalize_ndt_sums` builds
-    keys so; `convert.ndt_map_from_numpy` checks it."""
+    sort (`ndt_gather.gather_stats_sorted`). `finalize_ndt_sums` and
+    `_pack_rows` build keys so and assert it on the device
+    (`ndt_gather.assert_keys_ascend`, no host sync);
+    `convert.ndt_map_from_numpy` checks it on the host."""
 
     origin: torch.Tensor  # [3] host float32 grid min corner (metres)
     count: torch.Tensor  # [V] float32
@@ -446,6 +449,7 @@ def finalize_ndt_sums(sums: NDTMapSums, config: NDTConfig) -> NDTMap:
     else:
         icov = torch.zeros((1, 3, 3), dtype=torch.float32, device=dev)
         valid = torch.zeros(1, dtype=torch.bool, device=dev)
+    assert_keys_ascend(keys)
     return NDTMap(
         origin=sums.origin,
         count=count,
@@ -511,6 +515,7 @@ def _pack_rows(origin, rows, dims, config: NDTConfig, icov_lower=None) -> NDTMap
         staticvalue = torch.zeros(1, dtype=torch.float32, device=dev)
         icov = torch.zeros((1, 3, 3), dtype=torch.float32, device=dev)
         valid = torch.zeros(1, dtype=torch.bool, device=dev)
+    assert_keys_ascend(keys)
     return NDTMap(
         origin=_host_origin(origin), count=count, mean=mean, icov=icov, staticvalue=staticvalue, valid=valid,
         index=index, packed=packed.contiguous(), keys=keys, dims=tuple(dims), resolution=config.resolution,

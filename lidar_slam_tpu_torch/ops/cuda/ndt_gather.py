@@ -20,6 +20,10 @@ only there, each runs `gather_stats_plain`, the literal one-hot compare and
 product, chunked over rows. Both return [N, S, F]: for each id in `vids`
 [N, S], the sum of the `table` rows whose key equals it, and a zero row
 where none does.
+
+`assert_keys_ascend` checks the presorted entry's contract on the device:
+every NDTMap constructor ends with it, and the plain version of the
+presorted entry runs it, so keys out of order fail loudly on any device.
 """
 
 from __future__ import annotations
@@ -37,10 +41,25 @@ ROW = 16  # the kernel's row width: four float4 loads
 launches = 0
 
 
-def gather_stats_plain(keys, table, vids, max_onehot: int = 1 << 24):
+def assert_keys_ascend(keys) -> None:
+    """Fail unless `keys` [C] int32 ascend in unsigned order, NDTMap's
+    invariant: strictly rising ids, then only -1. One small reduction and
+    a device-side assert (`torch._assert_async`), so no host sync: on a
+    CUDA tensor a failure is a device-side assert that the next sync
+    raises; on a CPU tensor it raises a RuntimeError at once."""
+    a, b = keys[:-1], keys[1:]
+    ok = torch.all(torch.where(b == -1, a >= -1, (a >= 0) & (b > a)))
+    torch._assert_async(ok, "NDT map keys must be strictly rising voxel ids followed by -1 (unsigned ascending order)")
+
+
+def gather_stats_plain(keys, table, vids, max_onehot: int = 1 << 24, any_order: bool = False):
     """Plain PyTorch version of K3 (any device): onehot(vids == keys) @ table,
     chunked so a one-hot block holds at most `max_onehot` floats. Exact when
-    keys are unique: each output sums one row and zeros."""
+    keys are unique: each output sums one row and zeros. It holds the keys
+    to the presorted entry's order (`assert_keys_ascend`) unless
+    `any_order` (the general entry's plain version)."""
+    if not any_order:
+        assert_keys_ascend(keys)
     n, s = vids.shape
     flat = vids.reshape(-1)
     chunk = max(1, max_onehot // max(keys.shape[0], 1))
@@ -101,8 +120,10 @@ def _device(vids, name):
 
 def gather_stats_sorted(keys, table, vids):
     """K3 on keys that ascend in unsigned order, row j holding keys[j]: an
-    NDT map's `keys` [C+1] and `packed` [C+1, 16] (NDTMap's invariant; keys
-    in another order give wrong rows, not an error). `vids` [N, S] int32
+    NDT map's `keys` [C+1] and `packed` [C+1, 16] (NDTMap's invariant, which
+    every map constructor asserts on the device; the kernel itself does not
+    check it, so keys in another order give wrong rows there, and raise in
+    the plain version). `vids` [N, S] int32
     (ids absent from `keys`, such as the -2 of an out-of-bounds slot, give a
     zero row). CUDA tensors launch the Hopper kernel once, with no sort and
     no host sync; CPU tensors take the plain version. Returns [N, S, 16]
@@ -121,7 +142,7 @@ def gather_stats_onehot(keys, table, vids):
     version. Returns [N, S, 16] float32."""
     dev = _device(vids, "gather_stats_onehot")
     if dev.type == "cpu":
-        return gather_stats_plain(keys, table, vids)
+        return gather_stats_plain(keys, table, vids, any_order=True)
     build.check_tensor("keys", keys, torch.int32, dev, (keys.shape[0],))
     # flipping the sign bit turns unsigned order into signed order
     flipped, perm = torch.sort(keys ^ torch.iinfo(torch.int32).min, stable=True)

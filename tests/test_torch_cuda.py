@@ -472,7 +472,7 @@ def test_gather_kernel_matches_plain(dev):
     before = ndt_gather.launches
     k = ndt_gather.gather_stats_onehot(keys, table, vids)
     assert ndt_gather.launches == before + 1
-    p = ndt_gather.gather_stats_plain(keys, table, vids)
+    p = ndt_gather.gather_stats_plain(keys, table, vids, any_order=True)
     assert ndt_gather.launches == before + 1
     assert torch.equal(k, p)
     hit = vids == int(used[11])
@@ -562,6 +562,35 @@ def test_sorted_gather_is_one_kernel_and_no_sync(dev):
         if device_work:
             break
     assert len(device_work) == 1 and "ndt_gather" in device_work[0][0] and device_work[0][1] == 3, device_work
+
+
+def test_map_build_order_check_makes_no_sync(dev):
+    """Every map constructor ends with the key-order check
+    (ndt_gather.assert_keys_ascend): on the card it is a reduction and a
+    device-side assert, no host sync (sync debug mode "error" raises on
+    one). finalize_ndt_sums (the front end's map update) and _pack_rows
+    (the sharded builds' global step) each run under that mode, after a
+    warm-up, and give keys in NDTMap's order."""
+    cfg = dataclasses.replace(CFG, dense_stats=False)  # the tracking maps' form
+    pts = PointCloud.from_points(_scene(), device=dev)
+    sums = tndt.scatter_to_sums(tndt.empty_ndt_sums(ORIGIN, cfg, device=dev), pts.points, pts.mask)
+    v = int(np.prod(cfg.grid_dims))
+    count, mean, cov, sv = tndt._moments_from_sums(sums.origin, sums.count, sums.psum, sums.ppsum, sums.wsum,
+                                                   sums.dims, sums.resolution)
+    rows = tndt._condition_rows(count, mean, cov, sv, cfg)[0]
+    builds = {"finalize_ndt_sums": lambda: tndt.finalize_ndt_sums(sums, cfg),
+              "_pack_rows": lambda: tndt._pack_rows(sums.origin, rows, sums.dims, cfg)}
+    for name, build in builds.items():
+        build()  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            m = build()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        keys = m.keys.cpu().numpy()
+        used = int((keys >= 0).sum())
+        assert 0 < used < v and np.all(keys[used:] == -1) and np.all(np.diff(keys[:used]) > 0), name
 
 
 def test_gather_wrapper_rejects_bad_inputs(dev):

@@ -14,6 +14,7 @@ keyframes, and refuses a record with one loop edge moved. Torch is pinned
 to one CPU thread while the file runs.
 """
 
+import json
 import math
 import sys
 from pathlib import Path
@@ -250,3 +251,38 @@ def test_witness_replays_the_record(short_run, tmp_path, capsys):
     np.savez(moved, **rec)
     assert endurance_witness.main([str(moved)]) == 1
     assert "NOT at the same frames" in capsys.readouterr().out
+
+
+def test_front_end_witness_splits_a_saved_state(short_run, tmp_path, capsys):
+    """endurance.py --replay-front-end --state-out and front_end_witness.py
+    over the short lap, its keyframe window cut to 4 so that the map evicts:
+    the state holds every keyframe update before the frame (the fifth on
+    evicting), and the JAX replay of those updates gives the same counts,
+    the same grid corner and sums within float32 rounding of the port's;
+    the JAX alignments land where the port's does. The port holds this
+    frame on the CPU, so the witness prints every number and exits 1
+    (nothing to split)."""
+    import front_end_witness
+
+    d, run, rep, _ = short_run
+    record = tmp_path / "record.npz"
+    E.save_record(str(record), run, d)
+    rec = dict(np.load(record))
+    assert SMALL_CONFIG.count("local_frame_num: 10") == 1
+    rec["config"] = np.asarray(SMALL_CONFIG.replace("local_frame_num: 10", "local_frame_num: 4"))
+    frame = len(d) - 2
+    state = tmp_path / "state.npz"
+    rows = E.replay_front_end(d, rec, frame, "cpu", frame, str(state))
+    assert max(mine for _, mine, _ in rows) < E.LOST_STEP
+    s = np.load(state)
+    assert int(s["frame"]) == frame and len(s["kf_pose"]) >= 8
+    assert s["kf_evicts"].tolist() == [j >= 4 for j in range(len(s["kf_pose"]))]
+    out_json = tmp_path / "witness.json"
+    assert front_end_witness.main([str(state), "--json", str(out_json)]) == 1
+    out = capsys.readouterr().out
+    assert "the port holds this frame" in out and "verdict: no loss" in out
+    w = json.loads(out_json.read_text())
+    assert w["count_diff"] == 0 and w["preprocess_same_mask"] and w["preprocess_gap"] == 0.0
+    assert w["psum_gap"] <= 1e-4 and w["ppsum_gap"] <= 1e-4
+    for name in ("jax_on_port", "jax_on_jax"):
+        assert abs(w[name] - w["port"]) <= 5e-3, (name, w)

@@ -270,3 +270,77 @@ def test_entries_reject_other_devices():
     for entry in (ndt_gather.gather_stats_sorted, ndt_gather.gather_stats_onehot):
         with pytest.raises(ValueError, match="unsupported device"):
             entry(keys.to("meta"), table.to("meta"), vids.to("meta"))
+
+
+class _KeysOutOfOrder:
+    """Stands in for `torch` inside models/registration/ndt.py: the key
+    build's searchsorted gives keys broken in one way (`_break_order`
+    before the -1 tail is filled in), as a faulty constructor would."""
+
+    def __init__(self, how):
+        self.how = how
+
+    def __getattr__(self, name):
+        return getattr(torch, name)
+
+    def searchsorted(self, *args, **kwargs):
+        k = torch.searchsorted(*args, **kwargs).clone()
+        _break_order(self.how, k, int(k.shape[0]))
+        return k
+
+
+def _build(constructor):
+    """One map from the port constructor `constructor` (a one-rank mesh
+    for the sharded builders, which run there in-process)."""
+    from lidar_slam_tpu_torch.parallel import sharded_ndt
+    from lidar_slam_tpu_torch.parallel.mesh import Mesh
+
+    pts = make_scene(20, 50, seed=1)
+    cloud = TCloud.from_points(pts)
+    if constructor == "finalize_ndt_sums":
+        sums = tndt.scatter_to_sums(tndt.empty_ndt_sums(ORIGIN, CFG_T), cloud.points, cloud.mask)
+        return tndt.finalize_ndt_sums(sums, CFG_T)
+    mesh = Mesh(rank=0, size=1, device=torch.device("cpu"), backend="none")
+    if constructor == "sharded_build_ndt_map":
+        return sharded_ndt.sharded_build_ndt_map(cloud, ORIGIN, CFG_T, mesh)
+    kf = torch.as_tensor(pts[:1000].reshape(2, 500, 3))
+    return sharded_ndt.sharded_build_local_map(kf, torch.ones((2, 500), dtype=torch.bool), torch.ones((2, 500)),
+                                               np.tile(np.eye(4, dtype=np.float32), (2, 1, 1)), np.ones(2, bool),
+                                               ORIGIN, CFG_T, mesh)
+
+
+CONSTRUCTORS = ["finalize_ndt_sums", "sharded_build_ndt_map", "sharded_build_local_map"]
+
+
+@pytest.mark.parametrize("how", ["falling", "repeated"])
+@pytest.mark.parametrize("constructor", CONSTRUCTORS)
+def test_constructors_reject_keys_out_of_order(constructor, how, monkeypatch):
+    """Every NDTMap constructor of the port (finalize_ndt_sums, and
+    _pack_rows under the sharded builders) ends with the device-side order
+    check: given a key build that breaks NDTMap's order, the build fails
+    (on the CPU at once) instead of handing K3 keys it would misread. The
+    same builds with the key build intact pass the check."""
+    m = _build(constructor)
+    _assert_map_order(m.keys.numpy())
+    monkeypatch.setattr(tndt, "torch", _KeysOutOfOrder(how))
+    with pytest.raises(RuntimeError, match="unsigned ascending"):
+        _build(constructor)
+
+
+@pytest.mark.parametrize("how", ["falling", "repeated", "id_after_tail", "negative_id"])
+def test_plain_gather_rejects_keys_out_of_order(how):
+    """The presorted entry's plain version (what CPU tensors take, and what
+    the kernel is held to) raises on keys out of NDTMap's order, where the
+    kernel would return wrong rows; the general entry's plain version takes
+    the same keys in any order and gives the one-hot rows."""
+    _, tm, _ = _maps(CAPS["tail"])
+    keys = tm.keys.clone()
+    _break_order(how, keys, int((keys >= 0).sum()))
+    vids = tm.keys[:64].reshape(8, 8)
+    for call in (lambda: ndt_gather.gather_stats_plain(keys, tm.packed, vids),
+                 lambda: ndt_gather.gather_stats_sorted(keys, tm.packed, vids)):
+        with pytest.raises(RuntimeError, match="unsigned ascending"):
+            call()
+    want = (vids.reshape(-1, 1) == keys[None, :]).to(torch.float32) @ tm.packed
+    got = ndt_gather.gather_stats_onehot(keys, tm.packed, vids)
+    np.testing.assert_array_equal(got.reshape(-1, 16).numpy(), want.numpy())
