@@ -31,7 +31,10 @@ grid) on bench.py's aloam_leg world and trajectory, at bench.py's density
      its plain version on a few alignments of the drive's frames: the
      kernel's score, gradient and Hessian at its final pose against the
      plain sums there, and the poses (check_poses), its device time per
-     alignment and per iteration beside the host loop's;
+     alignment and per iteration beside the host loop's; its grid (blocks,
+     cluster size) and, at frame 0, its split by phase an evaluation from
+     20 stamped launches (newton_split), each equal to the bit to an
+     unstamped one;
   5. the 20-frame drive through the host loop (newton_align over K1, one
      launch per evaluation), and ndt_align (ndt_newton) on every frame from
      the host loop's guess: the poses (check_poses), one host sync per
@@ -453,6 +456,42 @@ def host_ms(fn, reps=5):
     return float(np.median(times))
 
 
+def newton_split(call, max_iter, dev, reps=20):
+    """ndt_newton's split by phase on one alignment's inputs: `call(stamps)`
+    launched `reps` times with stamps (ndt_newton.split), each result equal to
+    the bit to an unstamped launch's. Returns the mean us an evaluation of
+    each phase (the globaltimer's ticks average out over the launches), of a
+    whole evaluation and of the set-up before the loop (the compaction), the
+    evaluations, and the timer's tick (the smallest step seen between two
+    stamps, ns)."""
+    import torch
+
+    from lidar_slam_tpu_torch.ops.cuda import ndt_newton as N
+
+    ref = call(None)
+    stamps = torch.empty(N.stamp_slots(max_iter), dtype=torch.int64, device=dev)
+    spans, setup, ticks = [], [], []
+    for _ in range(reps):
+        out = call(stamps)
+        check(torch.equal(out, ref), "ndt_newton: a stamped launch's result differs from the unstamped one")
+        head, per = N.split(stamps)
+        setup.append(head)
+        spans.append(per)
+        steps = np.diff(np.sort(stamps[1:].cpu().numpy()))
+        ticks.append(steps[steps > 0].min())
+    per = np.concatenate(spans)
+    res = {name: float(per[:, j].mean() / 1e3) for j, name in enumerate(N.SPLIT)}
+    res.update(evaluation=float(per.sum(axis=1).mean() / 1e3), setup=float(np.mean(setup) / 1e3),
+               evaluations=len(spans[0]), tick_ns=int(min(ticks)))
+    return res
+
+
+def split_text(sp):
+    from lidar_slam_tpu_torch.ops.cuda.ndt_newton import SPLIT
+
+    return ", ".join(f"{name} {sp[name]:.2f}" for name in ("setup", *SPLIT, "evaluation"))
+
+
 def newton_parity(workload, cfg, stencil):
     """Phase 4 for one stencil: ndt_newton against ndt_newton_plain on the
     card, on the drive's first three alignments (each from the motion-model
@@ -467,6 +506,7 @@ def newton_parity(workload, cfg, stencil):
     from lidar_slam_tpu_torch.models.registration import build_ndt_map, ndt_align
     from lidar_slam_tpu_torch.models.registration.ndt import _matrix_to_pose, _pose_to_matrix, ndt_align_host_loop
     from lidar_slam_tpu_torch.ops.cuda import ndt_newton as N
+    from lidar_slam_tpu_torch.ops.cuda.ndt_fused import STENCIL_OFFSETS
     from lidar_slam_tpu_torch.pipeline.front_end import _preprocess
 
     map_cloud, all_pts, all_msk, gt, guess0 = workload
@@ -506,6 +546,16 @@ def newton_parity(workload, cfg, stencil):
             res["host_loop_ms"] = host_ms(lambda: ndt_align_host_loop(ndt_map, frame, predict, cfg), reps=20)
             n_bytes, flops = ndt_work(frame, ndt_map, trace, cfg)
             res["bound_ms"], res["bound_by"] = bound(n_bytes, flops)
+            res["call"] = (args, kw)
+            res["grid"] = N.grid(len(STENCIL_OFFSETS[stencil]))
+            res["split"] = newton_split(lambda stamps: N.ndt_newton(*args, **kw, stamps=stamps), cfg.max_iter,
+                                        frame.points.device)
+            log(f"[newton {stencil}] grid: {res['grid']['blocks']} blocks ({res['grid']['blocks_per_sm']} an SM x "
+                f"{res['grid']['sms']} SMs) in clusters of {res['grid']['cluster']} ({res['grid']['clusters']} "
+                f"resident at once)")
+            log(f"[newton {stencil}] frame 0 split, us an evaluation (mean of 20 stamped launches, "
+                f"{res['split']['evaluations']} evaluations each, timer tick {res['split']['tick_ns']} ns): "
+                f"{split_text(res['split'])}")
             log(f"[newton {stencil}] frame 0: ndt_newton {res['ms']:.4f} ms an alignment, "
                 f"{res['ms_per_iteration']:.4f} an iteration (device, median); plain {res['plain_ms']:.2f} ms; "
                 f"ndt_align {res['align_ms']:.3f} ms vs host loop {res['host_loop_ms']:.3f} ms (wall, median); "
@@ -628,6 +678,18 @@ def scan_match_drive(workload, cfg, stencil):
     # every sum on the path is taken in a fixed order: a rerun is bit-identical
     check(np.array_equal(warm, poses), f"scan-match {name}: two runs of the drive differ")
     return poses, dt / N_FRAMES * 1e3
+
+
+def scan_match_config():
+    """Phases 3-5 and 8-9 (bench.py:164-191, 315-332): the scan-match
+    operating point, 1 m NDT voxels on a 256 x 256 x 64 grid, 65 536 compact
+    voxels, the fused gather."""
+    from lidar_slam_tpu_torch.models.registration import NDTConfig
+
+    return NDTConfig(
+        resolution=1.0, grid_dims=(256, 256, 64), point_chunk=8192, max_iter=30,
+        stencil="direct7", gather="fused", max_compact_voxels=65536, fused_window=512,
+    )
 
 
 def tracking_config():
@@ -1164,6 +1226,7 @@ def loop_kernel_parity(lc, pair, smi):
         if "ms" in res:
             continue  # timed on the first guess's inputs
         res["iterations"] = iters[-1]
+        res["call"] = (args, kw)
         res["ms"] = device_ms(lambda: N.ndt_newton(*args, **kw), reps=20)
         res["plain_ms"] = device_ms(lambda: N.ndt_newton_plain(*args, **kw), reps=3)
         res["fitness_ms"] = device_ms(lambda: point_nn_fitness_score(submap, scan, T), reps=10)
@@ -1518,6 +1581,7 @@ def matching_kernel_parity(m, frame, predict, res):
             n_bytes, flops = ndt_work(frame, ndt_map, trace, cfg)
             res["bound_ms"], res["bound_by"] = bound(n_bytes, flops)
             c_args, c_kw = calls["coarse"]
+            res["call"], res["coarse_call"] = calls["fine"], calls["coarse"]
             res["coarse_ms"] = device_ms(lambda: N.ndt_newton(*c_args, **c_kw), reps=20)
             log(f"[matching newton] {int(frame.mask.sum())} frame points x {int((ndt_map.keys >= 0).sum())} voxels "
                 f"({cfg.stencil}, {'x'.join(map(str, ndt_map.dims))} grid): ndt_newton {res['ms']:.4f} ms an "
@@ -2719,7 +2783,6 @@ def main(argv=None) -> int:
         print("chip_smoke: CUDA is not available; this check runs only on a GPU", file=sys.stderr)
         return 2
     import lidar_slam_tpu_torch
-    from lidar_slam_tpu_torch.models.registration import NDTConfig
     from lidar_slam_tpu_torch.ops.cuda import knn_fused, ndt_fused, ndt_gather, ndt_newton
 
     check("jax" not in sys.modules, "the port imported jax")
@@ -2731,10 +2794,7 @@ def main(argv=None) -> int:
 
     build_kernels()
 
-    cfg = NDTConfig(
-        resolution=1.0, grid_dims=(256, 256, 64), point_chunk=8192, max_iter=30,
-        stencil="direct7", gather="fused", max_compact_voxels=65536, fused_window=512,
-    )
+    cfg = scan_match_config()
     t0 = time.perf_counter()
     workload = build_workload(dev)
     torch.cuda.synchronize()
@@ -2863,6 +2923,10 @@ def main(argv=None) -> int:
             "library_ms": None,
             "iterations": n7["iterations"],
             "ms_per_iteration": n7["ms_per_iteration"],
+            "grid": n7["grid"],
+            "grid_radius27": n27["grid"],
+            "split_us": n7["split"],
+            "split_us_radius27": n27["split"],
             "align_ms": n7["align_ms"],
             "host_loop_ms": n7["host_loop_ms"],
             "ms_radius27": n27["ms"],

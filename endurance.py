@@ -592,6 +592,14 @@ def save_record(path: str, run: Run, drive: Drive) -> None:
                   "scan_seed": drive.seed})))
 
 
+def record_diff(path, other) -> list:
+    """The arrays of the record at `path` that are not those of `other`
+    (another run's record) to the bit, by name."""
+    a, b = np.load(path), np.load(other)
+    return [k for k in sorted(set(a.files) | set(b.files))
+            if k not in a.files or k not in b.files or a[k].shape != b[k].shape or not np.array_equal(a[k], b[k])]
+
+
 def motion_errors(poses, gt) -> np.ndarray:
     """Each frame's frame-to-frame motion error against the truth's, m
     (0 for the first)."""
@@ -718,7 +726,11 @@ def main(argv=None) -> int:
     ap.add_argument("--state-out", metavar="F", help="with --replay-front-end: save the front end's state at FRAME "
                     "(.npz, e.g. under build/) for front_end_witness.py")
     ap.add_argument("--record", help="a record endurance.py --out wrote")
+    ap.add_argument("--same-as", metavar="REC", help="with --out: fail unless the record equals REC, an earlier "
+                    "run's record, array for array to the bit")
     args = ap.parse_args(argv)
+    if args.same_as and not args.out:
+        ap.error("--same-as needs --out")
     import shutil
 
     import torch
@@ -759,6 +771,12 @@ def main(argv=None) -> int:
 
         print(f"[endurance] {device_label(torch.device('cuda'))}")
     fails = check(rep)
+    if args.same_as:
+        differ = record_diff(args.out, args.same_as)
+        print(f"[endurance] the record against {args.same_as}: {len(np.load(args.out).files) - len(differ)} arrays "
+              f"equal to the bit, differing {differ}")
+        if differ:
+            fails.append(f"the record differs from {args.same_as} in {differ}")
     for msg in fails:
         print(f"[endurance] FAILED: {msg}", flush=True)
     print(json.dumps({"ok": not fails, "frames": rep["frames"], "keyframes": rep["keyframes"],

@@ -23,7 +23,11 @@ once, in `coefficient_terms`: torch evaluates it for the plain version,
 numpy for the host loop, and the CUDA source holds the same
 expressions term for term, with every product and sum rounded on its own
 (`__fmul_rn`, `__fadd_rn`), as PyTorch's separate ops are
-(tests/test_torch_newton.py compares the two texts).
+(tests/test_torch_newton.py compares the texts).
+
+A launch can also record where an evaluation's time goes: pass `stamps`
+(an int64 tensor of `stamp_slots(max_iter)` entries) and read it with
+`split` (chip_smoke.py phase 4 and chip_newton.py print it).
 """
 
 from __future__ import annotations
@@ -248,42 +252,102 @@ class _Params(ctypes.Structure):
 
 assert ctypes.sizeof(_Params) == 4 * 17
 
+# The kernel's optional phase stamps (csrc/ndt_newton.cu: kStampHead,
+# kStampsPerEval): [0] the evaluations, [1] kernel entry, [2] loop entry,
+# then for each evaluation the %globaltimer (ns) at the end of each SPLIT
+# phase, in order; the first phase starts at the previous evaluation's end.
+STAMP_HEAD = 3
+STAMPS_PER_EVAL = 6
+SPLIT = (
+    "gathers",  # block 0's thread 0 through its (point, offset) pairs
+    "block_reduce",  # block 0's other warps done, its 28 sums reduced and stored
+    "last_block",  # until the last block of the grid has stored its sums
+    "barrier",  # from there until block 0 is past the grid barrier
+    "partials",  # the [28, G] table summed (in clusters) and the sums in hand
+    "step_pose",  # the Newton step on one thread, the next pose's coefficients on a warp
+)
+assert len(SPLIT) == STAMPS_PER_EVAL
+
+
+def stamp_slots(max_iter: int) -> int:
+    """int64 slots of a launch's stamps: at most max_iter + 2 evaluations."""
+    return STAMP_HEAD + STAMPS_PER_EVAL * (int(max_iter) + 2)
+
+
+def split(stamps) -> tuple[float, np.ndarray]:
+    """One stamped launch's (ns from kernel entry to loop entry, [E, 6] ns of
+    each evaluation's SPLIT phases)."""
+    s = np.asarray(stamps.cpu() if isinstance(stamps, torch.Tensor) else stamps, np.int64)
+    n_eval = int(s[0])
+    ends = s[STAMP_HEAD:STAMP_HEAD + STAMPS_PER_EVAL * n_eval].reshape(n_eval, STAMPS_PER_EVAL)
+    starts = np.concatenate([s[2:3], ends[:-1, -1]])
+    bounds = np.column_stack([starts, ends])
+    return float(s[2] - s[1]), np.diff(bounds, axis=1).astype(np.float64)
+
+
+def scratch_shapes(n: int, blocks: int) -> dict:
+    """The launch's scratch and result tensors (shape, dtype) for n source
+    rows on a grid of `blocks`: the compacted rows, the blocks' row counts,
+    the double-buffered [28, blocks] partials table and the result."""
+    return {
+        "compact": ((max(n, 1), 4), torch.float32),
+        "counts": ((2 * blocks,), torch.int32),
+        "partials": ((2, 28, blocks), torch.float32),
+        "out": ((NOUT,), torch.float32),
+    }
+
 
 def _library() -> ctypes.CDLL:
     lib = build.load("ndt_newton")
     if lib.ndt_newton_launch.argtypes is None:
-        lib.ndt_newton_blocks.argtypes = [ctypes.c_int]
-        lib.ndt_newton_blocks.restype = ctypes.c_int
+        lib.ndt_newton_grid.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        lib.ndt_newton_grid.restype = ctypes.c_int
         lib.ndt_newton_launch.argtypes = [ctypes.c_void_p] * 6 + [
             ctypes.POINTER(_Params), ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ]
+        ] + [ctypes.c_void_p] * 6
         lib.ndt_newton_launch.restype = ctypes.c_int
         lib.ndt_pose_coefficients_launch.argtypes = [ctypes.c_void_p] * 3
         lib.ndt_pose_coefficients_launch.restype = ctypes.c_int
     return lib
 
 
+GRID_FIELDS = ("blocks", "cluster", "clusters", "blocks_per_sm", "sms")
+
+
+def grid(n_off: int) -> dict:
+    """The kernel's persistent grid on the current card for `n_off` stencil
+    offsets: blocks (as many as can be resident at once), the cluster size,
+    the clusters resident at once, blocks per SM and SMs."""
+    shape = (ctypes.c_int * len(GRID_FIELDS))()
+    err = _library().ndt_newton_grid(n_off, shape)
+    if err != 0:
+        raise RuntimeError(f"ndt_newton: the card's occupancy query failed: cudaError {err}")
+    return dict(zip(GRID_FIELDS, shape))
+
+
 def ndt_newton(
     points, mask, weights, index, packed, origin, pose0, *,
     dims, resolution, d1, d2, stencil, weight_derivatives,
-    max_iter, trans_eps, step_size, score_rel_tol,
+    max_iter, trans_eps, step_size, score_rel_tol, stamps=None,
 ):
     """The clamped-Newton alignment of `points` [N, 3] (raw, untransformed),
     `mask` [N] bool and `weights` [N] against the map's dense `index` [V]
     int32 and packed stats `packed` [C+1, 16], from the pose `pose0` [6] on
     the points' device. CUDA tensors launch the Hopper kernel (one
     cooperative launch, no host synchronisation); CPU tensors take the
-    plain version. Returns the [NOUT] result on the points' device."""
+    plain version. `stamps`, CUDA only: an int64 tensor of
+    `stamp_slots(max_iter)` entries, which the launch zeroes and the kernel
+    fills with its phase times (`split`); the result is the same.
+    Returns the [NOUT] result on the points' device."""
     global launches
     dev = points.device
     kw = dict(dims=dims, resolution=resolution, d1=d1, d2=d2, stencil=stencil,
               weight_derivatives=weight_derivatives, max_iter=max_iter, trans_eps=trans_eps,
               step_size=step_size, score_rel_tol=score_rel_tol)
-    if dev.type == "cpu":
+    if dev.type == "cpu" and stamps is None:
         return ndt_newton_plain(points, mask, weights, index, packed, origin, pose0, **kw)
     if dev.type != "cuda":
-        raise ValueError(f"ndt_newton: unsupported device {dev}")
+        raise ValueError(f"ndt_newton: unsupported device {dev}" + (" for stamps" if dev.type == "cpu" else ""))
     if stencil not in STENCIL_OFFSETS:
         raise ValueError(f"unknown stencil {stencil!r}")
     n = points.shape[0]
@@ -298,6 +362,8 @@ def ndt_newton(
     build.check_tensor("pose0", pose0, torch.float32, dev, (6,))
     if packed.ndim != 2 or packed.shape[1] != 16 or packed.data_ptr() % 16:
         raise ValueError("packed must be a 16-byte aligned [C+1, 16] table")
+    if stamps is not None:
+        build.check_tensor("stamps", stamps, torch.int64, dev, (stamp_slots(max_iter),))
 
     params = _Params(
         (ctypes.c_float * 3)(*_host("origin", origin).reshape(3)), float(resolution), float(resolution) ** 2, d1, d2,
@@ -307,30 +373,27 @@ def ndt_newton(
     )
     lib = _library()
     with torch.cuda.device(dev):
-        blocks = lib.ndt_newton_blocks(n_off)
-        if blocks < 1:
-            raise RuntimeError("ndt_newton: the card's occupancy query failed")
-        compact = torch.empty((max(n, 1), 4), dtype=torch.float32, device=dev)
-        counts = torch.empty(2 * blocks, dtype=torch.int32, device=dev)
-        partials = torch.empty((2, 28, blocks), dtype=torch.float32, device=dev)
-        out = torch.empty(NOUT, dtype=torch.float32, device=dev)
+        blocks = grid(n_off)["blocks"]
+        t = {name: torch.empty(shape, dtype=dtype, device=dev) for name, (shape, dtype) in scratch_shapes(n, blocks).items()}
+        if stamps is not None:
+            stamps.zero_()
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.ndt_newton_launch(
             points.data_ptr(), mask.data_ptr(), weights.data_ptr(), index.data_ptr(), packed.data_ptr(),
-            pose0.data_ptr(), ctypes.byref(params), n_off, blocks, compact.data_ptr(), counts.data_ptr(),
-            partials.data_ptr(), out.data_ptr(), stream,
+            pose0.data_ptr(), ctypes.byref(params), n_off, blocks, t["compact"].data_ptr(), t["counts"].data_ptr(),
+            t["partials"].data_ptr(), t["out"].data_ptr(), 0 if stamps is None else stamps.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(f"ndt_newton kernel launch failed: cudaError {err}")
     launches += 1
-    return out
+    return t["out"]
 
 
 def device_pose_coefficients(p):
     """The kernel's own pose math on the card: the [93] coefficients
-    (R, t, J, H in `_pack_params`' layout) of the pose p [6], computed by
-    the device function every block of `ndt_newton` runs. For checking it
-    against `pose_coefficients`; needs a CUDA tensor."""
+    (R, t, J, H in `_pack_params`' layout) of the pose p [6], computed on
+    one warp by the device function every block of `ndt_newton` runs. For
+    checking it against `pose_coefficients`; needs a CUDA tensor."""
     if p.device.type != "cuda":
         raise ValueError("device_pose_coefficients runs only on the card")
     build.check_tensor("p", p, torch.float32, p.device, (6,))

@@ -234,6 +234,85 @@ def test_newton_kernel_from_far_starts(dev, stencil):
         assert k[N.N_VALID] == p[N.N_VALID] == int(mask.sum()) and k[N.UNRESOLVED] == 0.0
 
 
+@pytest.mark.parametrize("stencil", ["direct7", "radius27"])
+def test_newton_stamped_launch_is_the_unstamped_one(dev, stencil):
+    """A launch with stamps returns the unstamped launch's 48 floats to the
+    bit, and its stamps hold one evaluation an iteration plus the first, in
+    time order: kernel entry, loop entry, then each evaluation's phases."""
+    m, src, mask, w, pose = _align_scene(dev, stencil)
+    N = ndt_newton
+    args, kw = _newton_call(m, src, mask, w, pose, stencil)
+    plain = N.ndt_newton(*args, **kw)
+    stamps = torch.empty(N.stamp_slots(kw["max_iter"]), dtype=torch.int64, device=dev)
+    before = N.launches
+    stamped = N.ndt_newton(*args, **kw, stamps=stamps)
+    assert N.launches == before + 1 and torch.equal(stamped, plain)
+    s = stamps.cpu().numpy()
+    n_eval = int(s[0])
+    assert n_eval == int(plain[N.ITERATIONS].item()) + 1
+    times = s[1:N.STAMP_HEAD + N.STAMPS_PER_EVAL * n_eval]
+    assert (times > 0).all() and (np.diff(times) >= 0).all()
+    assert not s[N.STAMP_HEAD + N.STAMPS_PER_EVAL * n_eval:].any()
+    setup, spans = N.split(stamps)
+    assert setup > 0 and spans.shape == (n_eval, len(N.SPLIT)) and (spans >= 0).all()
+
+
+def _row_cap_scene(dev, stencil, n, per_blob):
+    """_align_scene's 25 blobs with `per_blob` points each, and n source rows
+    drawn from their points, where the alignment from _align_scene's guess
+    converges in the plain version on the CPU whatever the rows' order (8
+    iterations at radius27 for 32 768 rows of 2 000-point blobs)."""
+    rng = np.random.default_rng(3)
+    centers = rng.uniform(-12, 12, size=(25, 3)).astype(np.float32)
+    centers[:, 2] = rng.uniform(-2, 4, size=25)
+    blobs = []
+    for c in centers:
+        A = rng.normal(size=(3, 3)) * np.array([0.3, 0.3, 0.05])
+        blobs.append(c + rng.normal(size=(per_blob, 3)) @ A.astype(np.float32))
+    pts = np.concatenate(blobs).astype(np.float32)
+    cfg = NDTConfig(grid_dims=(32, 32, 16), stencil=stencil, max_compact_voxels=2048, gather="fused")
+    m = build_ndt_map(PointCloud.from_points(pts, device=dev), cfg, origin=np.float32([-16.0, -16.0, -8.0]))
+    rng = np.random.default_rng(5)
+    src = pts[rng.choice(len(pts), n, replace=False)]
+    w = rng.uniform(0.2, 1.0, size=n).astype(np.float32)
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    return m, t(src), torch.ones(n, dtype=torch.bool, device=dev), t(w), [0.25, -0.15, 0.05, 0.0, 0.0, 0.0]
+
+
+def test_newton_kernel_at_the_row_cap(dev):
+    """The tracking path's 32 768-row frame at radius27, the most trips of
+    the grid a tracking alignment makes: the kernel against its plain
+    version at test_newton_kernel_matches_plain's tolerances, but for the
+    rotation, held to the kernel's own pose at 1e-6 and to the plain
+    version's within the poses' 1e-4: over 32 768 x 27 pairs the two sums'
+    orders move the final yaw by ~3e-6 rad (2.8e-6 on an H100)."""
+    stencil, n = "radius27", 32768
+    m, src, mask, w, pose = _row_cap_scene(dev, stencil, n, 2000)
+    N = ndt_newton
+    args, kw = _newton_call(m, src, mask, w, pose, stencil)
+    k = N.ndt_newton(*args, **kw).cpu().numpy()
+    p = N.ndt_newton_plain(*args, **kw).cpu().numpy()
+    assert k[N.ITERATIONS] == p[N.ITERATIONS] and k[N.CONVERGED] == p[N.CONVERGED] == 1.0
+    np.testing.assert_allclose(k[N.POSE], p[N.POSE], rtol=0, atol=1e-4)
+    np.testing.assert_allclose(k[N.SCORE], p[N.SCORE], rtol=2e-4)
+    own = N.pose_coefficients(torch.as_tensor(k[N.POSE]))[0].reshape(9).numpy()
+    np.testing.assert_allclose(k[N.ROTATION], own, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(k[N.ROTATION], p[N.ROTATION], rtol=0, atol=1e-4)
+    assert k[N.N_VALID] == p[N.N_VALID] == n and k[N.UNRESOLVED] == 0.0
+
+
+def test_newton_grid_fills_the_card(dev):
+    """The persistent grid is every block the card holds at once (blocks an
+    SM x SMs), cut into the clusters that fit it: C x the resident clusters
+    is that grid, for both stencils."""
+    for n_off in (7, 27):
+        g = ndt_newton.grid(n_off)
+        print(f"[grid {n_off}] {g}")
+        assert g["sms"] == torch.cuda.get_device_properties(dev).multi_processor_count
+        assert g["blocks"] == g["blocks_per_sm"] * g["sms"] >= g["sms"]
+        assert g["cluster"] >= 1 and g["cluster"] * g["clusters"] == g["blocks"]
+
+
 def test_newton_kernel_repeats_and_empty(dev):
     """Fixed-order sums: a rerun is bit-identical. With no masked-in point
     the loop stops at once on the degenerate step, keeping the guess."""

@@ -253,6 +253,25 @@ def test_witness_replays_the_record(short_run, tmp_path, capsys):
     assert "NOT at the same frames" in capsys.readouterr().out
 
 
+def test_record_diff_names_what_moved(short_run, tmp_path):
+    """record_diff (endurance.py --same-as): a record against itself saved
+    twice differs nowhere; one odometry pose moved by one float32 ulp, or an
+    array missing, is named."""
+    d, run, _, _ = short_run
+    a, b = tmp_path / "a.npz", tmp_path / "b.npz"
+    E.save_record(str(a), run, d)
+    E.save_record(str(b), run, d)
+    assert E.record_diff(str(a), str(b)) == []
+    rec = dict(np.load(b))
+    rec["odom"] = rec["odom"].copy()
+    rec["odom"][3, 0, 3] = np.nextafter(rec["odom"][3, 0, 3], np.float32(np.inf))
+    np.savez(b, **rec)
+    assert E.record_diff(str(a), str(b)) == ["odom"]
+    del rec["solve_by"]
+    np.savez(b, **rec)
+    assert E.record_diff(str(a), str(b)) == ["odom", "solve_by"]
+
+
 def test_front_end_witness_splits_a_saved_state(short_run, tmp_path, capsys):
     """endurance.py --replay-front-end --state-out and front_end_witness.py
     over the short lap, its keyframe window cut to 4 so that the map evicts:

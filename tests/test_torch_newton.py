@@ -8,6 +8,7 @@ fused Pallas kernel in interpret mode). The CUDA kernel itself is held
 against `ndt_newton_plain` on the card by tests/test_torch_cuda.py.
 """
 
+import ctypes
 import dataclasses
 import re
 from pathlib import Path
@@ -97,25 +98,162 @@ class _Sym:
         return _Sym(f"-{self.e}")
 
 
-def test_kernel_source_has_the_coefficient_terms():
-    """The kernels' device pose math (csrc/ndt_reduce.cuh: pose_coefficients,
-    run by ndt_newton.cu and by ndt_fused.cu for a pose on the card) has
-    exactly the expressions of `coefficient_terms`, each product and sum
-    rounded on its own, in the kernel's layout (the CUDA side has no CPU
-    mode, so the texts are compared)."""
+# Each kernel's pose math: the function that includes coefficient_terms.cuh, and the lines beside it
+# that define the fragment's inputs. ndt_reduce.cuh's one-thread pose_coefficients (K1), and
+# ndt_newton.cu's coefficient table, whose codes one warp evaluates, a coefficient a lane.
+COEFFICIENT_FRAGMENT = "coefficient_terms.cuh"
+COEFFICIENT_SOURCES = {
+    "ndt_reduce.cuh": ("void pose_coefficients(", (
+        "cosf(p[3]), sa = sinf(p[3])", "fabsf(p[3]) < 1e-4f", "cx = snap_x ? 1.0f : ca, sx = snap_x ? 0.0f : sa",
+        "c[kT + 0] = p[0];")),
+    "ndt_newton.cu": ("constexpr Table table() {", (
+        "const float ang = p[3 + min(lane >> 1, 2u)];", "sincosf(ang, &sv, &cv);",
+        "const float trig = lane & 1u ? sv : cv;", "fabsf(p[3]) < 1e-4f",
+        "v = s & 1u ? 0.0f : 1.0f;  // cx = snap_x ? 1 : ca", "if (k >= kT && k < kJ) v = p[k - kT];",
+        "const Sym ca{0}, sa{1}, cb{2}, sb{3}, cc{4}, sc{5}, cx{6}, sx{7}, cy{8}, sy{9}, cz{10}, sz{11};")),
+}
+
+
+@pytest.mark.parametrize("source", sorted(COEFFICIENT_SOURCES))
+def test_kernel_source_has_the_coefficient_terms(source):
+    """The kernels' device pose math has exactly the expressions of
+    `coefficient_terms`, each product and sum rounded on its own, in the
+    kernel's layout (the CUDA side has no CPU mode, so the texts are
+    compared): the text that ndt_reduce.cuh's pose_coefficients (run by
+    ndt_fused.cu for a pose on the card) and ndt_newton.cu's table (its
+    warp's coefficient codes) each include, once, inside that function."""
     rot = [_Sym(n) for n in ("ca", "sa", "cb", "sb", "cc", "sc")]
     ang = [_Sym(n) for n in ("cx", "sx", "cy", "sy", "cz", "sz")]
     R, J, H = ndt_newton.coefficient_terms(rot, ang, _Sym("0.0f"))
     want = [f"c[{k} + {i}] = {e.e};" for k, terms in (("kR", R), ("kJ", J), ("kH", H)) for i, e in enumerate(terms)]
-    src = (CSRC / "ndt_reduce.cuh").read_text()
+    function, definitions = COEFFICIENT_SOURCES[source]
+    src = (CSRC / source).read_text()
+    include = f'#include "{COEFFICIENT_FRAGMENT}"\n'
+    assert src.count(include) == 1
+    begin = src.index(function)
+    assert begin < src.index(include) < src.index("\n}\n", begin)
+    src = src.replace(include, (CSRC / COEFFICIENT_FRAGMENT).read_text())
+    assert src.count("// BEGIN coefficient_terms") == 1
     block = src[src.index("// BEGIN coefficient_terms"):src.index("// END coefficient_terms")]
     got = [ln.strip() for ln in block.splitlines()[1:] if ln.strip()]
     assert got == want
     # the snap, the cosines and sines, and t follow the same definitions
-    for ln in ("cosf(p[3]), sa = sinf(p[3])", "fabsf(p[3]) < 1e-4f", "cx = snap_x ? 1.0f : ca, sx = snap_x ? 0.0f : sa",
-               "c[kT + 0] = p[0];"):
+    for ln in definitions:
         assert ln in src, ln
     assert float(re.search(r"fabsf\(p\[4\]\) < ([0-9.e-]+)f", src).group(1)) == ndt_newton.ANGLE_SNAP
+
+
+class _Code:
+    """A coefficient term as ndt_newton.cu's table codes it: 0, a product of
+    factors taken from the left, or the sum or difference of two products;
+    a factor is one of the 12 symbols (cosines and sines, then the snapped
+    ones), perhaps negated."""
+
+    def __init__(self, op="product", factors=()):
+        self.op, self.factors = op, list(factors)
+
+    def __mul__(self, o):
+        assert self.op == "product" and len(self.factors) < 3 and o.op == "product" and len(o.factors) == 1
+        return _Code("product", self.factors + o.factors)
+
+    def __add__(self, o):
+        return _Code("sum", [self.factors, o.factors])
+
+    def __sub__(self, o):
+        return _Code("difference", [self.factors, o.factors])
+
+    def __neg__(self):
+        (sym, neg), = self.factors
+        return _Code("product", [(sym, not neg)])
+
+
+def _evaluate_code(code, values):
+    """The warp's evaluation of one coded term on float32 `values` [12]:
+    ((f0 * f1) * f2) op ((f3 * f4) * f5), missing factors 1."""
+    def prod(factors):
+        f = [(-values[s] if neg else values[s]) for s, neg in factors] + [np.float32(1.0)] * (3 - len(factors))
+        return (f[0] * f[1]) * f[2]
+
+    if code.op == "zero":
+        return np.float32(0.0)
+    if code.op == "product":
+        return prod(code.factors)
+    p1, p2 = prod(code.factors[0]), prod(code.factors[1])
+    return p1 + p2 if code.op == "sum" else p1 - p2
+
+
+@pytest.mark.parametrize("pose", POSES + [[3.0, -1.0, 2.0, -1.2, 0.9, 2.5]])
+def test_warp_coefficient_codes_keep_the_bits(pose):
+    """ndt_newton.cu's warp evaluates every coefficient in one generic form,
+    ((f0 * f1) * f2) op ((f3 * f4) * f5) with the missing factors 1, from
+    its coded term: in float32 each coefficient has the bits of its own
+    expression in `coefficient_terms` (a product by 1 is exact)."""
+    pose = np.asarray(pose, np.float32)
+    c, s = np.cos(pose[3:]), np.sin(pose[3:])
+    small = np.abs(pose[3:]) < np.float32(ndt_newton.ANGLE_SNAP)
+    cs, ss = np.where(small, np.float32(1), c), np.where(small, np.float32(0), s)
+    rot = (c[0], s[0], c[1], s[1], c[2], s[2])
+    ang = (cs[0], ss[0], cs[1], ss[1], cs[2], ss[2])
+    with np.errstate(all="ignore"):
+        want = ndt_newton.coefficient_terms(rot, ang, np.float32(0))
+    codes = ndt_newton.coefficient_terms([_Code("product", [(i, False)]) for i in range(6)],
+                                         [_Code("product", [(6 + i, False)]) for i in range(6)], _Code("zero"))
+    values = np.asarray(rot + ang, np.float32)
+    for w_terms, c_terms in zip(want, codes):
+        got = np.asarray([_evaluate_code(k, values) for k in c_terms], np.float32)
+        np.testing.assert_array_equal(got.view(np.int32), np.asarray(w_terms, np.float32).view(np.int32))
+
+
+def test_wrapper_scratch_and_params_match_the_kernel():
+    """The wrapper's ctypes `_Params`, stamp layout and scratch sizes are the
+    kernel's: the fields of NdtNewtonParams (and ndt::GridConsts) in order,
+    kStampHead / kStampsPerEval, and the launch's documented scratch."""
+    newton = (CSRC / "ndt_newton.cu").read_text()
+    reduce = (CSRC / "ndt_reduce.cuh").read_text()
+
+    def fields(src, struct):
+        body = re.search(r"struct " + struct + r" \{(.*?)\n\};", src, re.S).group(1)
+        out = []
+        for ln in body.splitlines():
+            m = re.match(r"\s*(float|int|ndt::GridConsts) (.*?);", ln)
+            if m:
+                for name in m.group(2).split(","):
+                    name = name.strip()
+                    if m.group(1) == "ndt::GridConsts":
+                        out += fields(reduce, "GridConsts")
+                        continue
+                    arr = re.match(r"(\w+)\[(\d+)\]", name)
+                    ctype = ctypes.c_float if m.group(1) == "float" else ctypes.c_int
+                    out.append((arr.group(1), ctype * int(arr.group(2))) if arr else (name, ctype))
+        return out
+
+    want = fields(newton, "NdtNewtonParams")
+    got = list(ndt_newton._Params._fields_)
+    assert [n for n, _ in got] == [n for n, _ in want]
+    assert all(ctypes.sizeof(a) == ctypes.sizeof(b) and getattr(a, "_type_", a) == getattr(b, "_type_", b)
+               for (_, a), (_, b) in zip(got, want))
+    assert ctypes.sizeof(ndt_newton._Params) == 4 * sum(ctypes.sizeof(t) // 4 for _, t in want)
+    head, per = (int(re.search(rf"{k} = (\d+)", newton).group(1)) for k in ("kStampHead", "kStampsPerEval"))
+    assert (ndt_newton.STAMP_HEAD, ndt_newton.STAMPS_PER_EVAL) == (head, per)
+    assert ndt_newton.stamp_slots(30) == head + per * 32
+    # ndt_newton_launch: compact max(n, 1) * 4 floats, counts 2 * blocks ints, partials 2 * 28 * blocks
+    # floats, out 48 floats
+    for n, blocks in ((0, 264), (32768, 264), (1531, 528)):
+        sizes = {k: (int(np.prod(shape)), dtype) for k, (shape, dtype) in ndt_newton.scratch_shapes(n, blocks).items()}
+        assert sizes == {"compact": (max(n, 1) * 4, torch.float32), "counts": (2 * blocks, torch.int32),
+                         "partials": (2 * 28 * blocks, torch.float32), "out": (48, torch.float32)}
+    assert int(re.search(r"kNOut = (\d+)", newton).group(1)) == ndt_newton.NOUT
+    # two evaluations' stamps: the phases of each, the first from the loop's entry
+    st = np.zeros(ndt_newton.stamp_slots(3), np.int64)
+    st[:3] = (2, 100, 250)
+    st[3:15] = np.arange(260, 380, 10)
+    setup, spans = ndt_newton.split(st)
+    assert setup == 150.0 and spans.shape == (2, len(ndt_newton.SPLIT))
+    np.testing.assert_array_equal(spans, [[10, 10, 10, 10, 10, 10], [10, 10, 10, 10, 10, 10]])
+    with pytest.raises(ValueError):  # stamps are the kernel's: no plain version records them
+        ndt_newton.ndt_newton(*[torch.zeros(1)] * 7, dims=(1, 1, 1), resolution=1.0, d1=1.0, d2=1.0,
+                              stencil="direct7", weight_derivatives=True, max_iter=3, trans_eps=0.01,
+                              step_size=0.1, score_rel_tol=0.0, stamps=torch.zeros(st.size, dtype=torch.int64))
 
 
 def test_ldlt_solve_on_torch_scalars():
