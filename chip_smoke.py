@@ -9,7 +9,8 @@ phases 11-13), map-matching localization, the rebuilt local map with
 session restore, and the LM solver (phases 15-17), and the command-line
 entry point from KITTI files on disk (phase 18), the multi-rank layer
 (phase 19), the benchmark entry point (phase 20) and the mapping CLI over
-the endurance drive's first out-and-back (phase 21). NDT scan-to-map tracking
+the endurance drive's first out-and-back with each front end (phases 21-22).
+NDT scan-to-map tracking
 runs at
 the KITTI HDL-64 operating point of bench.py (raw scans padded to 131 072
 points, frames of <= 32 768 points, 1 m NDT voxels on a 256 x 256 x 64
@@ -93,7 +94,7 @@ grid) on bench.py's aloam_leg world and trajectory, at bench.py's density
      `--session-out FILE` both runs' odometry, keyframes, loop edges and
      optimized poses are saved for session_witness.py, which replays them
      through the JAX back end;
- 14. the kernels line (printed last, after phases 15-20): every kernel
+ 14. the kernels line (printed last, after phases 15-22): every kernel
      with its launches on its paths, its device time beside its plain
      version's and its bound (the larger of the bytes it must move over
      3.35 TB/s and its fp32 FLOPs over 67 TFLOP/s, counted from this run's
@@ -102,7 +103,8 @@ grid) on bench.py's aloam_leg world and trajectory, at bench.py's density
      session, matching and rebuilt-map paths too, its `_loop` fields are
      phase 11's and its `_matching` fields phase 15's; K1's count the LM
      alignments of phase 17 and the sharded paths of phase 19 beside the
-     host-loop drives; every kernel's count adds the bench's (phase 20);
+     host-loop drives; every kernel's count adds the bench's (phase 20)
+     and the endurance phases' (21-22: ndt_newton's and K2's);
  15. map-matching localization at MatchingConfig() widths (a 224 x 224 x
      48 radius27 fine map, a 112 x 112 x 24 coarse one, GPF ground removal)
      on bench.py's matching_leg world at DENSE, against the world surface
@@ -173,9 +175,21 @@ grid) on bench.py's aloam_leg world and trajectory, at bench.py's density
      CLI with the drive as its frame source, every pose-graph solve, memory
      samples, the saved map's cut; endurance.py's checks but its keyframe
      floor, at least ENDURANCE_MIN_LOOPS loop; its launches join the
-     kernels line.
+     kernels line;
+ 22. the A-LOAM endurance harness (aloam_endurance_phase): the same
+     harness with `mapping --front-end aloam` over the first out-and-back
+     of endurance.py's A-LOAM drive (the same corridor, trucks and truth at
+     density 10000, 64 x 2 048 spinning sweeps of at least 100k returns,
+     simulated by endurance.SIM_WORKERS low-priority processes from phase 2
+     on, while the earlier phases run): the CLI's A-LOAM front
+     end at 131 072 rows (the CLI's own rule asks 65 536 under
+     --synthetic); endurance.py's checks but its keyframe floor: at least
+     one verification attempt and ENDURANCE_MIN_LOOPS loop, window_knn
+     exactly K2_PER_SWEEP launches a sweep and ndt_newton one an attempt,
+     K1 and K3 none, no sweep cut, no map at capacity; its launches join
+     the kernels line. The phase's seconds and the whole run's are logged.
 
-Phases 11-21 print the card's name and power limit on each summary line.
+Phases 11-22 print the card's name and power limit on each summary line.
 
 Any failed check ends the run with a non-zero exit code. The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -2760,6 +2774,54 @@ def endurance_phase(work, smi):
     return {"launches": run.launches["ndt_newton"], "keyframes": rep["keyframes"], "loops": len(rep["loops"])}
 
 
+def aloam_endurance_drive():
+    """Phase 22's drive, its first out-and-back's sweeps started now in
+    endurance.SIM_WORKERS processes at endurance.SIM_NICE, so that they are
+    simulated while the earlier phases run (Drive.start; main() stops them
+    at the end, done or not)."""
+    import endurance as E
+
+    drive = E.aloam_drive()
+    drive.start(E.first_lap_frames(drive))
+    return drive
+
+
+def aloam_endurance_phase(work, smi, drive):
+    """Phase 22: endurance.py's harness (run_mapping, report, check) with
+    `mapping --front-end aloam` on the first out-and-back of its A-LOAM
+    drive (aloam_drive: the endurance world at ALOAM_DENSITY, spinning
+    sweeps simulated by SIM_WORKERS processes), the CLI's A-LOAM front end
+    at the drive's 131 072 rows. Every check of endurance.py but its
+    keyframe floor, with ENDURANCE_MIN_LOOPS loops and at least one
+    verification attempt: exit 0, every loop within LOOP_TOL with fitness
+    <= 0.2, the optimized keyframes' ATE under 0.5 m, window_knn exactly
+    K2_PER_SWEEP launches a sweep and ndt_newton one an attempt, K1 and K3
+    none, no sweep cut, no map at capacity, memory_allocated growing by less
+    than 64 MiB from keyframe 50 to the end, every sweep with at least 100k
+    returns. Returns the kernels-line fields."""
+    import endurance as E
+
+    t0 = time.perf_counter()
+    n = E.first_lap_frames(drive)
+    os.makedirs(work, exist_ok=True)
+    config = os.path.join(work, "config.yaml")
+    with open(config, "w") as f:
+        f.write(E.config_text())
+    run = E.run_mapping(drive, os.path.join(work, "map"), config, n_frames=n, front_end="aloam")
+    rep = E.report(run, drive)
+    E.print_report(rep, " phase 22")
+    fails = E.check(rep, min_keyframes=0, min_loops=ENDURANCE_MIN_LOOPS)
+    if rep["attempts"] < 1:
+        fails.append("no loop-closure attempt")
+    seconds = time.perf_counter() - t0
+    log(f"[endurance phase 22] {n} frames of {len(drive)}, A-LOAM: {seconds:.1f} s, the sweeps simulated by "
+        f"{drive.workers} processes since phase 2; window_knn {run.launches['window_knn']} launches in {n} sweeps, "
+        f"ndt_newton {run.launches['ndt_newton']} in {rep['attempts']} attempts ({smi})")
+    check(not fails, f"A-LOAM endurance, first out-and-back: {fails}")
+    return {"launches": run.launches["window_knn"], "launches_ndt_newton": run.launches["ndt_newton"],
+            "keyframes": rep["keyframes"], "loops": len(rep["loops"]), "seconds": seconds}
+
+
 def reset_launches():
     from lidar_slam_tpu_torch.ops.cuda import knn_fused, ndt_fused, ndt_gather, ndt_newton
 
@@ -2778,12 +2840,12 @@ def main(argv=None) -> int:
     ap.add_argument("--parallel-out", help="save phase 19's local map, its inputs and both of the port's maps "
                     "(.npz) for parallel_witness.py")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check runs only on a GPU", file=sys.stderr)
         return 2
     import lidar_slam_tpu_torch
-    from lidar_slam_tpu_torch.ops.cuda import knn_fused, ndt_fused, ndt_gather, ndt_newton
 
     check("jax" not in sys.modules, "the port imported jax")
     dev = lidar_slam_tpu_torch.device("cuda")
@@ -2793,6 +2855,18 @@ def main(argv=None) -> int:
         f"python {sys.version.split()[0]}")
 
     build_kernels()
+    aloam_sweeps = aloam_endurance_drive()
+    try:
+        return phases(args, dev, kind, count, smi, t_start, aloam_sweeps)
+    finally:
+        aloam_sweeps.stop()
+
+
+def phases(args, dev, kind, count, smi, t_start, aloam_sweeps) -> int:
+    """Phases 3-22 and the kernels line (main's docstring)."""
+    import torch
+
+    from lidar_slam_tpu_torch.ops.cuda import knn_fused, ndt_fused, ndt_gather, ndt_newton
 
     cfg = scan_match_config()
     t0 = time.perf_counter()
@@ -2901,6 +2975,12 @@ def main(argv=None) -> int:
     shutil.rmtree(work, ignore_errors=True)
     log(f"[launches] ndt_newton: {endurance['launches']} in the endurance drive's first out-and-back ({smi})")
 
+    # this slice's path: `mapping --front-end aloam` over the A-LOAM drive's first out-and-back; counts reset inside
+    aloam_endurance = aloam_endurance_phase(os.path.join(work, "endurance_aloam"), smi, aloam_sweeps)
+    shutil.rmtree(work, ignore_errors=True)
+    log(f"[launches] window_knn: {aloam_endurance['launches']}, ndt_newton: {aloam_endurance['launches_ndt_newton']} "
+        f"in the A-LOAM drive's first out-and-back ({smi})")
+
     d7, r27 = parity["direct7"], parity["radius27"]
     n7, n27 = newton["direct7"], newton["radius27"]
     k2 = next(c for c in knn if c["density"] == f"{DENSE:g}" and c["case"] == "odometry")
@@ -2914,7 +2994,7 @@ def main(argv=None) -> int:
             "replaces_loop": "lidar_slam_tpu/models/registration/ndt.py:1407",
             "launches": launches_drive + launches_front + loop["launches"] + session["launches"]
             + session["launches_drift"] + matching["launches"] + rebuilt["launches"] + cli["launches"]
-            + bench["launches"]["ndt_newton"] + endurance["launches"],
+            + bench["launches"]["ndt_newton"] + endurance["launches"] + aloam_endurance["launches_ndt_newton"],
             "max_abs_err": max(n7["max_abs_err"], n27["max_abs_err"], loop["max_abs_err"], matching["max_abs_err"]),
             "ms": n7["ms"],
             "plain_ms": n7["plain_ms"],
@@ -2955,6 +3035,7 @@ def main(argv=None) -> int:
             "launches_cli_matching": cli["launches_matching"],
             "launches_bench": bench["launches"]["ndt_newton"],
             "launches_endurance": endurance["launches"],
+            "launches_endurance_aloam": aloam_endurance["launches_ndt_newton"],
         },
         {
             "name": "ndt_reduce_fused",
@@ -2988,7 +3069,8 @@ def main(argv=None) -> int:
             "route": "cuda",
             "source": "lidar_slam_tpu_torch/csrc/knn_fused.cu",
             "replaces": "lidar_slam_tpu/ops/pallas/knn_fused.py:117",
-            "launches": launches_k2 + cli["launches_aloam"] + bench["launches"]["window_knn"],
+            "launches": launches_k2 + cli["launches_aloam"] + bench["launches"]["window_knn"]
+            + aloam_endurance["launches"],
             "max_abs_err": max(c["max_abs_err"] for c in knn),
             "ms": k2["ms"],
             "plain_ms": k2["plain_ms"],
@@ -2998,6 +3080,7 @@ def main(argv=None) -> int:
             "alone_ms": k2["alone_ms"],
             "launches_cli_aloam": cli["launches_aloam"],
             "launches_bench": bench["launches"]["window_knn"],
+            "launches_endurance_aloam": aloam_endurance["launches"],
             "cases": [{key: v for key, v in c.items() if key != "max_abs_err"} for c in knn],
         },
         {
@@ -3024,6 +3107,7 @@ def main(argv=None) -> int:
             "onehot_drive_device_ms_per_frame": onehot["device_ms_per_frame"],
         },
     ]}))
+    log(f"[chip_smoke] phases 1-22 in {time.perf_counter() - t_start:.1f} s, phase 22 {aloam_endurance['seconds']:.1f} s")
     log(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}), flush=True)
     return 0

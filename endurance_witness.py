@@ -19,7 +19,10 @@ gap, and exits non-zero if a check fails. It imports nothing of the port
 and needs no GPU.
 
 `--front-end FRAME` replays the JAX FrontEnd instead, over the frames
-before a frame the port's run lost (replay_front_end).
+before a frame the port's run lost (replay_front_end): the NDT front end
+only. A record of `endurance.py --front-end aloam` names its front end;
+the back end replays it the same way, and aloam_witness.py holds its
+A-LOAM steps to JAX's.
 """
 
 import argparse
@@ -139,7 +142,10 @@ def main(argv=None) -> int:
     from lidar_slam_tpu.io.trajectory import ate_rmse
 
     data = np.load(args.record)
+    front = str(data["front_end"]) if "front_end" in data.files else "ndt"
     if args.front_end is not None:
+        if front != "ndt":
+            ap.error(f"--front-end replays the NDT front end; this record's is {front} (aloam_witness.py)")
         for i, mine, port in replay_front_end(data, args.front_end, args.before):
             print(f"[replay] frame {i}: motion error {mine:.4f} m in JAX, {port:.4f} m in the port's run"
                   + ("  <- lost" if max(mine, port) > LOST_STEP else ""))
@@ -150,7 +156,8 @@ def main(argv=None) -> int:
     port_kf = data["kf_frames"].tolist()
     port_solves = list(zip(data["solve_frames"].tolist(), data["solve_by"].tolist()))
     same_kf, same_solves = kf_frames == port_kf, solves == port_solves
-    print(f"{len(data['odom'])} frames, {len(data['loop_frames'])} loop edges; replayed in {seconds:.1f} s")
+    print(f"{len(data['odom'])} frames of the {front} front end, {len(data['loop_frames'])} loop edges; replayed in "
+          f"{seconds:.1f} s")
     print(f"keyframes: JAX {len(kf_frames)}, the port {len(port_kf)} "
           f"({'the same frames' if same_kf else 'NOT the same frames'})")
     print(f"solves: JAX {len(solves)}, the port {len(port_solves)} "

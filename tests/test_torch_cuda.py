@@ -478,13 +478,45 @@ def test_knn_kernel_repeats_and_empty(dev):
     _assert_knn_equal(e, p)
 
 
+def _captured_nodes(call, n=3):
+    """The device work of n calls: the nodes of a CUDA graph that captures
+    them, as [(node type, its DOT label)] from the graph's DOT dump (every
+    kernel, copy and fill the calls issue on the capturing stream is a node;
+    a host sync, or work on the legacy default stream, fails the capture).
+    A torch.profiler window, which these checks took before, drops a
+    launch's record now and then on the card, in every form tried
+    (chip_profiler_window.py)."""
+    import os
+    import re
+    import tempfile
+
+    g = torch.cuda.CUDAGraph(keep_graph=True)  # else the graph is freed at the capture's end, before the dump
+    g.enable_debug_mode()
+    with torch.cuda.graph(g):
+        for _ in range(n):
+            call()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "graph.dot")
+        g.debug_dump(path)
+        assert os.path.exists(path), "CUDAGraph.debug_dump wrote no DOT file"
+        with open(path) as f:
+            text = f.read()
+    labels = re.findall(r'"graph_\d+_node_\d+"\s*\[[^\]]*?label="([^"]*)"', text)
+    assert labels, text
+    kinds = re.compile(r"\b(KERNEL|MEMCPY|MEMSET|HOST|EMPTY|GRAPH|EVENT_RECORD|WAIT_EVENT|MEM_ALLOC|MEM_FREE|"
+                       r"CONDITIONAL|EXT_SEMAS_SIGNAL|EXT_SEMAS_WAIT|BATCH_MEM_OP)\b", re.IGNORECASE)
+    labels = [re.sub(r"\\[nlr]", " ", lab) for lab in labels]  # DOT's line-break escapes
+    return [((kinds.search(lab) or re.match("", "")).group(0).upper() or "UNKNOWN", lab) for lab in labels]
+
+
+def _one_kernel_a_call(nodes, kernel, n=3):
+    return len(nodes) == n and all(t == "KERNEL" and kernel in lab for t, lab in nodes)
+
+
 def test_knn_wrapper_is_one_kernel_and_no_sync(dev):
     """A call makes no host sync (sync debug mode "error" raises on one),
-    and runs on the device one kernel and no copy or fill: 3 calls in a
-    torch.profiler window show 3 launches of it and nothing else. A window
-    now and then comes back empty on the card, so up to 3 are taken."""
-    from torch.profiler import ProfilerActivity, profile
-
+    and runs on the device one kernel and no copy or fill: a CUDA graph
+    that captures 3 calls holds 3 launches of it and nothing else."""
     cloud, q, qm, ring = _knn_inputs(dev)
     grid = build_bucket_grid(cloud, 5.0, (32, 32, 8))
     knn_fused.window_knn(grid, q, qm, 8, 5.0, ring)  # warm-up: the build and the first launch
@@ -494,15 +526,8 @@ def test_knn_wrapper_is_one_kernel_and_no_sync(dev):
         knn_fused.window_knn(grid, q, qm, 8, 5.0, ring)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
-                knn_fused.window_knn(grid, q, qm, 8, 5.0, ring)
-            torch.cuda.synchronize()
-        device_work = [(e.key, e.count) for e in prof.key_averages() if e.self_device_time_total > 0]
-        if device_work:
-            break
-    assert len(device_work) == 1 and "knn_kernel" in device_work[0][0] and device_work[0][1] == 3, device_work
+    nodes = _captured_nodes(lambda: knn_fused.window_knn(grid, q, qm, 8, 5.0, ring))
+    assert _one_kernel_a_call(nodes, "knn_kernel"), nodes
 
 
 def test_knn_wrapper_rejects_bad_inputs(dev):
@@ -618,11 +643,9 @@ def test_sorted_gather_matches_plain_on_map(dev, cap, stencil):
 
 def test_sorted_gather_is_one_kernel_and_no_sync(dev):
     """A presorted call makes no host sync (sync debug mode "error" raises
-    on one) and runs one kernel on the device, no sort, copy or fill: 3
-    calls in a torch.profiler window show 3 launches of it and nothing
-    else. A window now and then comes back empty, so up to 3 are taken."""
-    from torch.profiler import ProfilerActivity, profile
-
+    on one) and runs one kernel on the device, no sort, copy or fill: a
+    CUDA graph that captures 3 calls holds 3 launches of it and nothing
+    else."""
     m, src, _, _ = _inputs(dev)
     vids = _map_vids(m, src, "radius27")
     ndt_gather.gather_stats_sorted(m.keys, m.packed, vids)  # warm-up: the build and the first launch
@@ -632,15 +655,8 @@ def test_sorted_gather_is_one_kernel_and_no_sync(dev):
         ndt_gather.gather_stats_sorted(m.keys, m.packed, vids)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
-                ndt_gather.gather_stats_sorted(m.keys, m.packed, vids)
-            torch.cuda.synchronize()
-        device_work = [(e.key, e.count) for e in prof.key_averages() if e.self_device_time_total > 0]
-        if device_work:
-            break
-    assert len(device_work) == 1 and "ndt_gather" in device_work[0][0] and device_work[0][1] == 3, device_work
+    nodes = _captured_nodes(lambda: ndt_gather.gather_stats_sorted(m.keys, m.packed, vids))
+    assert _one_kernel_a_call(nodes, "ndt_gather"), nodes
 
 
 def test_map_build_order_check_makes_no_sync(dev):
