@@ -106,16 +106,22 @@ def _path_kernels(ndt_configs, dev, aloam: bool = False, sharded: bool = False) 
 
 def _build_kernels(stems, log: bool = True) -> None:
     """Build (or find in build/kernels/) and load each kernel, one nvcc
-    each, all started together."""
+    each, all started together: the run's `setup.kernels` span, counting
+    `kernels_built` (nvcc runs; the others were found built)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from .ops.cuda import build
+    from .utils import watchdog
 
     if not stems:
         return
     t0 = time.time()
-    with ThreadPoolExecutor(len(stems)) as pool:
-        list(pool.map(build.load, stems))
+    with watchdog.span("setup.kernels"):
+        with ThreadPoolExecutor(len(stems)) as pool:
+            infos = list(pool.map(build.build, stems))
+        for stem in stems:
+            build.load(stem)
+        watchdog.count("kernels_built", sum(info.seconds > 0.0 for info in infos))
     if log:
         print(f"kernels: {', '.join(stems)} ready in {time.time() - t0:.1f}s")
 
@@ -166,15 +172,28 @@ def _mapping_rank(mesh, args) -> int:
 
 
 def _run_mapping(args, dev, mesh=None) -> int:
+    """A mapping session. On the lead rank (rank 0, or the only one) it runs
+    under its RunHealth, the run's tracer (utils/watchdog.py), active from
+    before the kernel build to the end."""
+    from .utils.watchdog import RunHealth
+
+    if mesh is not None and mesh.rank != 0:
+        return _mapping_session(args, dev, mesh, None)
+    health = RunHealth()
+    with health.active():
+        return _mapping_session(args, dev, mesh, health)
+
+
+def _mapping_session(args, dev, mesh, health) -> int:
+    import itertools
     import json
 
     from .config import load_config
     from .io.keyframe_store import KeyframeStore
     from .io.trajectory import write_kitti_trajectory, ate_rmse
     from .pipeline import BackEnd, FrontEnd, LoopClosing, Viewer
-    from .utils.watchdog import RunHealth
 
-    lead = mesh is None or mesh.rank == 0
+    lead = health is not None
     cfg = load_config(args.config)
     resume = bool(getattr(args, "resume", False))
     aloam = getattr(args, "front_end", "ndt") == "aloam"
@@ -193,7 +212,6 @@ def _run_mapping(args, dev, mesh=None) -> int:
         be = BackEnd(cfg.back_end, store=store, device=dev)
         lc = LoopClosing(cfg.loop_closing, store=store, data_path=args.out, device=dev)
         viewer = Viewer(cfg.viewer, store, device=dev)
-        health = RunHealth()
 
     # --- session resume (SURVEY §5.3/§5.4): rebuild tracking + graph state
     # from the store and continue where the interrupted run stopped
@@ -256,58 +274,68 @@ def _run_mapping(args, dev, mesh=None) -> int:
                 continue
             yield i, frame
 
-    frames = _prefetch(_stage(_frame_source(args)))
+    frames = _skipping(_prefetch(_stage(_frame_source(args))))
     gt = []
     live_path = f"{store.traj_dir}/laser_odom_live.txt"
     if skip_frames == 0:
         open(live_path, "w").close()
     t_start = time.time()
-    for i, frame in _skipping(frames):
-        if mesh is not None:
-            _send_frame(mesh, frame["preloaded"], frame.get("bboxes"), cfg.front_end.max_bboxes)
-        with health.stage("front_end"):
-            pose, _ = fe.update(
-                frame["points"], bboxes=frame.get("bboxes"),
-                preloaded=frame.get("preloaded"),
-            )
-        health.frame(pose)
-        est.append(pose)
-        if frame.get("gt_pose") is not None:
-            gt.append(frame["gt_pose"])
-        gnss = frame.get("gnss_position")
-        pts = frame["points"]
-        with health.stage("back_end"):
-            new_kf = be.update(
-                pose,
-                time=frame.get("time", i * 0.1),
-                gnss_position=gnss,
-                gnss_pose=frame.get("gnss_pose"),
-                cloud_points=pts[: len(pts)],
-                cloud_mask=np.ones(len(pts), bool),
-            )
-        if new_kf:
-            kf = be.latest_keyframe()
-            viewer.update_with_new_key_frame(kf.index, kf.pose)
-            with health.stage("loop_closing", budget_ms=500.0):
-                loop = lc.update(kf.index, kf.pose, gnss_position=gnss)
-            if loop is not None:
-                print(f"loop closure: {loop.index0} <- {loop.index1}")
-                be.insert_loop_pose(loop.index0, loop.index1, loop.relative_pose)
-            if be.has_new_optimized():
-                viewer.update_with_optimized_poses(be.get_optimized_poses())
-        with open(live_path, "a") as f:
-            f.write(" ".join(f"{v:.9g}" for v in np.asarray(pose, np.float32)[:3, :].reshape(-1)) + "\n")
-        o2m = be._odom_to_map
-        store.save_progress({
-            "frames_done": i + 1,
-            "last_pose": np.asarray(pose, np.float32).tolist(),
-            "predict_pose": np.asarray(
-                getattr(fe, "predict_pose", pose), np.float32
-            ).tolist(),
-            "odom_to_map": None if o2m is None else np.asarray(o2m, np.float32).tolist(),
-        })
-        if i % 20 == 0:
-            print(f"frame {i}: pose {np.asarray(pose)[:3, 3]}")
+    for i in itertools.count(skip_frames):
+        with health.span("handover", frame=i):
+            item = next(frames, None)
+        if item is None:
+            break
+        _, frame = item
+        with health.span("frame", frame=i):
+            if mesh is not None:
+                _send_frame(mesh, frame["preloaded"], frame.get("bboxes"), cfg.front_end.max_bboxes)
+            with health.stage("front_end"):
+                pose, _ = fe.update(
+                    frame["points"], bboxes=frame.get("bboxes"),
+                    preloaded=frame.get("preloaded"),
+                )
+            health.frame(pose)
+            est.append(pose)
+            if frame.get("gt_pose") is not None:
+                gt.append(frame["gt_pose"])
+            gnss = frame.get("gnss_position")
+            pts = frame["points"]
+            with health.stage("back_end"):
+                new_kf = be.update(
+                    pose,
+                    time=frame.get("time", i * 0.1),
+                    gnss_position=gnss,
+                    gnss_pose=frame.get("gnss_pose"),
+                    cloud_points=pts[: len(pts)],
+                    cloud_mask=np.ones(len(pts), bool),
+                )
+            if new_kf:
+                kf = be.latest_keyframe()
+                with health.span("viewer"):
+                    viewer.update_with_new_key_frame(kf.index, kf.pose)
+                with health.stage("loop_closing", budget_ms=500.0):
+                    loop = lc.update(kf.index, kf.pose, gnss_position=gnss)
+                if loop is not None:
+                    print(f"loop closure: {loop.index0} <- {loop.index1}")
+                    with health.span("loop_insert"):
+                        be.insert_loop_pose(loop.index0, loop.index1, loop.relative_pose)
+                if be.has_new_optimized():
+                    with health.span("viewer"):
+                        viewer.update_with_optimized_poses(be.get_optimized_poses())
+            with health.span("progress"):
+                with open(live_path, "a") as f:
+                    f.write(" ".join(f"{v:.9g}" for v in np.asarray(pose, np.float32)[:3, :].reshape(-1)) + "\n")
+                o2m = be._odom_to_map
+                store.save_progress({
+                    "frames_done": i + 1,
+                    "last_pose": np.asarray(pose, np.float32).tolist(),
+                    "predict_pose": np.asarray(
+                        getattr(fe, "predict_pose", pose), np.float32
+                    ).tolist(),
+                    "odom_to_map": None if o2m is None else np.asarray(o2m, np.float32).tolist(),
+                })
+                if i % 20 == 0:
+                    print(f"frame {i}: pose {np.asarray(pose)[:3, 3]}")
     if mesh is not None:
         _send_frame(mesh, None, None, cfg.front_end.max_bboxes)
 

@@ -22,6 +22,8 @@ from typing import Optional
 
 import numpy as np
 
+from ..utils import watchdog
+
 
 class KeyframeStore:
     def __init__(self, root: str, resume: bool = False):
@@ -49,21 +51,22 @@ class KeyframeStore:
         package writes the record in place.)"""
         path = self._path(index)
         tmp = path + ".tmp"
-        with open(tmp, "wb") as f:
-            np.savez_compressed(
-                f,
-                points=np.asarray(points, np.float32),
-                mask=np.asarray(mask, bool),
-                weights=None if weights is None else np.asarray(weights, np.float32),
-                pose=np.asarray(pose, np.float32),
-                time=np.float64(time),
-                gnss=None if gnss is None else np.asarray(gnss, np.float32),
-            )
-        os.replace(tmp, path)
+        with watchdog.span("store.save"):
+            with open(tmp, "wb") as f:
+                np.savez_compressed(
+                    f,
+                    points=np.asarray(points, np.float32),
+                    mask=np.asarray(mask, bool),
+                    weights=None if weights is None else np.asarray(weights, np.float32),
+                    pose=np.asarray(pose, np.float32),
+                    time=np.float64(time),
+                    gnss=None if gnss is None else np.asarray(gnss, np.float32),
+                )
+            os.replace(tmp, path)
         self._count = max(self._count, index + 1)
 
     def load(self, index: int) -> dict:
-        with np.load(self._path(index), allow_pickle=True) as z:
+        with watchdog.span("store.load"), np.load(self._path(index), allow_pickle=True) as z:
             gnss = z["gnss"] if "gnss" in z.files else None
             return {
                 "points": z["points"],

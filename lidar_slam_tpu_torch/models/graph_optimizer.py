@@ -42,6 +42,7 @@ import torch
 from .. import device as _default_device
 from ..geom.se3 import matrix_to_quat, pose_inverse, se3_exp, se3_log, so3_hat
 from ..ops.pointcloud import one_torch_thread, scatter_sum
+from ..utils import watchdog
 
 
 @dataclasses.dataclass(frozen=True)
@@ -244,13 +245,15 @@ def _solve_dense(asm, lam_lm, b):
     return torch.where(info == 0, x, torch.nan).reshape(n, 6)
 
 
-def _solve_pcg(asm, lam_lm, b, cfg: GraphOptimizerConfig, reduce=None):
+def _solve_pcg(asm, lam_lm, b, cfg: GraphOptimizerConfig, reduce=None, active_steps=None):
     """Block-Jacobi preconditioned CG on the matrix-free operator: the JAX
     package's while-loop, run for its `pcg_iters` steps with the state
     frozen once its condition (relative residual above pcg_tol) fails: no
     host read on any device. `reduce` completes the node sums of a shard
     of the edges (the edge-sharded solve's all_sum), as the JAX sharded
-    solve psums the diagonal blocks and each matvec."""
+    solve psums the diagonal blocks and each matvec. `active_steps`, where
+    given, is a 0-dim device count to which each step adds whether it
+    worked (one op a step)."""
     reduce = reduce or (lambda t: t)
     D = reduce(_diag_blocks(asm)) + (lam_lm + 1e-8) * torch.eye(6, device=b.device)
     Dinv = torch.linalg.inv_ex(D).inverse
@@ -266,6 +269,8 @@ def _solve_pcg(asm, lam_lm, b, cfg: GraphOptimizerConfig, reduce=None):
     b2 = torch.clamp(torch.sum(b * b), min=1e-30)
     for _ in range(cfg.pcg_iters):
         active = torch.sum(r * r) / b2 > cfg.pcg_tol**2
+        if active_steps is not None:
+            active_steps.add_(active)
         # (H p) summed over the shards, then the damping: (H + lam I) p
         Ap = reduce(_matvec(asm, 0.0, p)) + lam_lm * p * free
         alpha = rz / torch.clamp(torch.sum(p * Ap), min=1e-30)
@@ -297,36 +302,53 @@ def optimize_pose_graph(
 ) -> Tuple[PoseGraph, dict]:
     """Levenberg-Marquardt with variable lambda (g2o `lm_var` semantics).
     Returns (optimized graph on its device, stats as host numbers). One
-    host read per LM iteration: the done flag, with chi2 and lambda."""
-    dense = uses_dense(cfg, graph.poses.shape[0])
+    host read per LM iteration: the done flag, with chi2 and lambda.
 
-    def step(poses, lam):
-        asm = _assemble(dataclasses.replace(graph, poses=poses), cfg)
-        b = _gradient(asm)
-        return _solve_dense(asm, lam, b) if dense else _solve_pcg(asm, lam, b, cfg)
+    Under an active run (utils.watchdog) the solve is the `pose_graph` span,
+    counting `lm_iterations` and, for the PCG, `pcg_steps` (every step run)
+    and `pcg_active_steps` (the steps that worked, summed on the device and
+    read with the iterations' own host read)."""
+    with watchdog.span("pose_graph"):
+        dense = uses_dense(cfg, graph.poses.shape[0])
+        active_steps = None
+        if not dense and watchdog.active_run() is not None:
+            active_steps = torch.zeros((), dtype=torch.float32, device=graph.poses.device)
 
-    with one_torch_thread() if graph.poses.device.type == "cpu" else contextlib.nullcontext():
-        poses, stats = levenberg_marquardt(
-            graph.poses, graph.node_valid & ~graph.node_fixed, step,
-            lambda poses: graph_chi2(dataclasses.replace(graph, poses=poses), cfg), cfg,
-        )
-    return dataclasses.replace(graph, poses=poses), stats
+        def step(poses, lam):
+            asm = _assemble(dataclasses.replace(graph, poses=poses), cfg)
+            b = _gradient(asm)
+            return _solve_dense(asm, lam, b) if dense else _solve_pcg(asm, lam, b, cfg, active_steps=active_steps)
+
+        with one_torch_thread() if graph.poses.device.type == "cpu" else contextlib.nullcontext():
+            poses, stats = levenberg_marquardt(
+                graph.poses, graph.node_valid & ~graph.node_fixed, step,
+                lambda poses: graph_chi2(dataclasses.replace(graph, poses=poses), cfg), cfg,
+                active_steps=active_steps,
+            )
+        watchdog.count("lm_iterations", stats["iterations"])
+        if active_steps is not None:
+            watchdog.count("pcg_steps", stats["iterations"] * cfg.pcg_iters)
+            watchdog.count("pcg_active_steps", stats.pop("pcg_active_steps"))
+        return dataclasses.replace(graph, poses=poses), stats
 
 
-def levenberg_marquardt(poses, free, step, chi2_of, cfg: GraphOptimizerConfig):
+def levenberg_marquardt(poses, free, step, chi2_of, cfg: GraphOptimizerConfig, active_steps=None):
     """The LM loop shared by every pose-graph solver: `step(poses, lam)`
     gives the update [N, 6] of the damped system, `chi2_of(poses)` the
     total chi2 (0-dim, on the device); a step is kept if chi2 falls (lambda
     / factor), else dropped (lambda * factor), until a small relative change
     after a kept step, lambda above 1e6 or max_iterations. One host read an
-    iteration. Returns (poses, stats as host numbers)."""
+    iteration. Returns (poses, stats as host numbers). `active_steps`, a
+    0-dim device count that `step` adds to, rides on that read and comes
+    back as stats["pcg_active_steps"]."""
     chi2_0 = chi2_of(poses)
     chi2 = chi2_0
     lam = torch.full((), cfg.lm_lambda_init, dtype=torch.float32, device=chi2.device)
     done = torch.zeros((), dtype=torch.bool, device=chi2.device)
 
     def read():
-        return torch.stack([done.to(torch.float32), chi2_0, chi2, lam]).cpu().numpy()
+        extra = [] if active_steps is None else [active_steps]
+        return torch.stack([done.to(torch.float32), chi2_0, chi2, lam] + extra).cpu().numpy()
 
     it, host = 0, None
     while it < cfg.max_iterations:
@@ -346,6 +368,8 @@ def levenberg_marquardt(poses, free, step, chi2_of, cfg: GraphOptimizerConfig):
     if host is None:
         host = read()
     stats = {"chi2_before": float(host[1]), "chi2_after": float(host[2]), "iterations": it, "lambda": float(host[3])}
+    if active_steps is not None:
+        stats["pcg_active_steps"] = int(host[4])
     return poses, stats
 
 

@@ -48,6 +48,7 @@ from ..models.registration import (
 from ..models.registration.ndt import _to
 from ..ops.pointcloud import PointCloud, finite_mask, rotated_box_mask, voxel_downsample
 from ..parallel.sharded_ndt import sharded_ndt_align
+from ..utils import watchdog
 
 _f32 = np.float32
 
@@ -563,7 +564,8 @@ class FrontEnd:
             self.last_pose = pose.copy()
             self.predict_pose = pose.copy()
             self.last_key_frame_pose = pose.copy()
-            self._add_keyframe(frame, pose, bboxes)
+            with watchdog.span("front_end.keyframe"):
+                self._add_keyframe(frame, pose, bboxes)
             return pose, True
 
         use_coarse = cfg.coarse_to_fine and self.coarse_ndt_map is not None
@@ -571,16 +573,18 @@ class FrontEnd:
         coarse_map = self.coarse_ndt_map if use_coarse else self.ndt_map
         # track against the (possibly one-frame-stale) maps first, then run
         # the previous keyframe's deferred maintenance
-        f_pts, f_mask, pose, unresolved = _track_step(
-            self.ndt_map, coarse_map, pts_fixed, msk_fixed, self.predict_pose,
-            cfg.frame_capacity, cfg.frame_leaf, cfg.ndt, coarse_cfg, self.mesh,
-        )
+        with watchdog.span("front_end.track"):
+            f_pts, f_mask, pose, unresolved = _track_step(
+                self.ndt_map, coarse_map, pts_fixed, msk_fixed, self.predict_pose,
+                cfg.frame_capacity, cfg.frame_leaf, cfg.ndt, coarse_cfg, self.mesh,
+            )
         pend = self._pending_update
         if pend is not None:
-            self.fine_sums, world, self.ndt_map, self.coarse_ndt_map = _incremental_map_update(
-                *pend["args"], pend["fine_cfg"], pend["coarse_cfg"]
-            )
-            self.kf_world[pend["slot"]] = world
+            with watchdog.span("front_end.map_update", device=self.device):
+                self.fine_sums, world, self.ndt_map, self.coarse_ndt_map = _incremental_map_update(
+                    *pend["args"], pend["fine_cfg"], pend["coarse_cfg"]
+                )
+                self.kf_world[pend["slot"]] = world
             self._pending_update = None
         # the kernels gather directly: the JAX package's exact-path fallback for
         # dropped derivative terms can never trigger, so a non-zero count is
@@ -596,7 +600,8 @@ class FrontEnd:
         l1 = np.abs(pose[:3, 3] - self.last_key_frame_pose[:3, 3]).sum()
         is_kf = l1 > cfg.key_frame_distance
         if is_kf:
-            self._add_keyframe(frame, pose, bboxes)
+            with watchdog.span("front_end.keyframe"):
+                self._add_keyframe(frame, pose, bboxes)
             self.last_key_frame_pose = pose.copy()
         return pose, bool(is_kf)
 

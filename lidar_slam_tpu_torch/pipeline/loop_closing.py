@@ -31,6 +31,7 @@ from ..models.registration import NDTConfig, build_ndt_map, ndt_align, point_nn_
 from ..models.registration.ndt import newton_pose, newton_result, ndt_newton_align, takes_newton_kernel
 from ..models.scan_context import SCManager, ScanContextConfig
 from ..ops.pointcloud import PointCloud, voxel_downsample
+from ..utils import watchdog
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,17 +68,18 @@ def _verify_step(sub_pts, sub_msk, scan_pts, scan_msk, guess, cfg: LoopClosingCo
     point-NN squared fitness against the filtered submap points (the
     reference's gate, ndt_registration.cpp:63-66). Returns (pose [4, 4] host
     float32, fitness)."""
-    ndt_cfg = dataclasses.replace(cfg.ndt, dense_stats=False)
-    submap, ndt_map = _submap_ndt(sub_pts, sub_msk, cfg)
-    scan = voxel_downsample(PointCloud(points=scan_pts, mask=scan_msk), cfg.scan_filter_leaf,
-                            out_capacity=cfg.scan_capacity)
-    if takes_newton_kernel(ndt_cfg, scan.points.device):
-        out = ndt_newton_align(ndt_map, scan, guess, ndt_cfg)
-        fit = point_nn_fitness_score(submap, scan, newton_pose(out))
-        host = torch.cat([out, fit.reshape(1)]).cpu().numpy()  # the pose and the fitness in one read
-        return newton_result(host).pose.numpy(), float(host[-1])
-    r = ndt_align(ndt_map, scan, guess, ndt_cfg)
-    return r.pose.numpy(), float(point_nn_fitness_score(submap, scan, r.pose))
+    with watchdog.span("loop_closing.verify"):
+        ndt_cfg = dataclasses.replace(cfg.ndt, dense_stats=False)
+        submap, ndt_map = _submap_ndt(sub_pts, sub_msk, cfg)
+        scan = voxel_downsample(PointCloud(points=scan_pts, mask=scan_msk), cfg.scan_filter_leaf,
+                                out_capacity=cfg.scan_capacity)
+        if takes_newton_kernel(ndt_cfg, scan.points.device):
+            out = ndt_newton_align(ndt_map, scan, guess, ndt_cfg)
+            fit = point_nn_fitness_score(submap, scan, newton_pose(out))
+            host = torch.cat([out, fit.reshape(1)]).cpu().numpy()  # the pose and the fitness in one read
+            return newton_result(host).pose.numpy(), float(host[-1])
+        r = ndt_align(ndt_map, scan, guess, ndt_cfg)
+        return r.pose.numpy(), float(point_nn_fitness_score(submap, scan, r.pose))
 
 
 @dataclasses.dataclass
@@ -124,18 +126,19 @@ class LoopClosing:
         )
 
         rec = self.store.load(kf_index)
-        if cfg.loop_method == "sc":
-            self.sc.add(rec["points"], rec["mask"])
+        with watchdog.span("loop_closing.detect"):
+            if cfg.loop_method == "sc":
+                self.sc.add(rec["points"], rec["mask"])
 
-        # adaptive skip counter (loop_closing.cpp:152-168)
-        self._skip_cnt += 1
-        if self._skip_cnt < self._skip_num:
-            return None
+            # adaptive skip counter (loop_closing.cpp:152-168)
+            self._skip_cnt += 1
+            if self._skip_cnt < self._skip_num:
+                return None
 
-        if cfg.loop_method == "sc":
-            cand, yaw = self._detect_scan_context(kf_index)
-        else:
-            cand, yaw = self._detect_gnss(kf_index)
+            if cfg.loop_method == "sc":
+                cand, yaw = self._detect_scan_context(kf_index)
+            else:
+                cand, yaw = self._detect_gnss(kf_index)
         if cand < 0:
             return None
         self._skip_cnt = 0

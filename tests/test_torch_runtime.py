@@ -1,19 +1,16 @@
 """The port's last single-device modules against the JAX package's:
-SLR clustering (models/clustering.py), the timers and profiler hooks
-(utils/timing.py) and the native host runtime (native.py, built from
-runtime/lidar_runtime.cpp with g++), on the JAX tests' inputs
-(tests/test_components.py::TestSLRClustering, tests/test_utils.py,
-tests/test_native.py), made with numpy from a seed.
+SLR clustering (models/clustering.py) and the native host runtime
+(native.py, built from runtime/lidar_runtime.cpp with g++), on the JAX
+tests' inputs (tests/test_components.py::TestSLRClustering,
+tests/test_native.py), made with numpy from a seed. The JAX package's
+timers (utils/timing.py) have no port: the port times through its run's
+tracer (utils/watchdog.py, tests/test_torch_trace.py).
 
 Clustering labels and sizes are integers: equal. The native runtime's
 voxel centroids: within 1e-4 of the port's voxel_downsample (the JAX test's
 bound) and equal to the JAX package's library's. The native tests skip only
 where no g++ builds the runtime.
 """
-
-import json
-import os
-import time
 
 import jax.numpy as jnp
 import numpy as np
@@ -26,7 +23,6 @@ from lidar_slam_tpu.models import clustering as jclust
 from lidar_slam_tpu_torch import native as tnative
 from lidar_slam_tpu_torch.models import clustering as tclust
 from lidar_slam_tpu_torch.ops import PointCloud, finite_mask, range_mask, voxel_downsample
-from lidar_slam_tpu_torch.utils import StageTimer, TicToc, profiler_trace, trace_annotation
 
 
 def _two_objects(angle=0.0):
@@ -81,37 +77,6 @@ def test_slr_cluster_matches_reference(scene):
     for segments in (n, 64):  # every label, and labels past the histogram dropped
         np.testing.assert_array_equal(tclust.cluster_sizes(got, segments).numpy(),
                                       np.asarray(jclust.cluster_sizes(jnp.asarray(ref), segments)))
-
-
-def test_tictoc():
-    t = TicToc()
-    time.sleep(0.01)
-    assert 5 < t.toc() < 500
-    assert t.toc(block_on=[torch.zeros(3), {"a": torch.ones(2)}]) > 5
-
-
-def test_stage_timer():
-    st = StageTimer()
-    with st.stage("a"):
-        time.sleep(0.005)
-    with st.stage("a", block_on=torch.zeros(2)):
-        time.sleep(0.005)
-    with st.stage("b"):
-        pass
-    s = st.summary()
-    assert s["a"]["count"] == 2 and s["b"]["count"] == 1
-    assert s["a"]["mean_ms"] > 2
-    assert "a" in st.report()
-
-
-def test_profiler_trace_writes_chrome_trace(tmp_path):
-    with profiler_trace(str(tmp_path)):
-        with trace_annotation("slam_test_region"):
-            torch.ones(64).sum()
-    (path,) = [p for p in os.listdir(tmp_path) if p.startswith("trace_") and p.endswith(".json")]
-    with open(tmp_path / path) as f:
-        events = json.load(f)["traceEvents"]
-    assert any(e.get("name") == "slam_test_region" for e in events)
 
 
 def _rows_sorted(a):
