@@ -8,8 +8,9 @@ half (loop closure, pose-graph optimization, a whole mapping session,
 phases 11-13), map-matching localization, the rebuilt local map with
 session restore, and the LM solver (phases 15-17), and the command-line
 entry point from KITTI files on disk (phase 18), the multi-rank layer
-(phase 19), the benchmark entry point (phase 20) and the mapping CLI over
-the endurance drive's first out-and-back with each front end (phases 21-22).
+(phase 19), the benchmark entry point (phase 20), the mapping CLI over
+the endurance drive's first out-and-back with each front end (phases 21-22)
+and the pose graph's PCG kernel (phase 23).
 NDT scan-to-map tracking
 runs at
 the KITTI HDL-64 operating point of bench.py (raw scans padded to 131 072
@@ -22,8 +23,9 @@ grid) on bench.py's aloam_leg world and trajectory, at bench.py's density
 
   1. device and power limit (exits non-zero without CUDA: never runs on
      the CPU);
-  2. builds the kernels (csrc/*.cu: K1 ndt_fused, ndt_newton, K2, K3), one
-     nvcc each, all at once, and logs their registers and spills;
+  2. builds the kernels (csrc/*.cu: K1 ndt_fused, ndt_newton, K2, K3,
+     pose_pcg), one nvcc each, all at once, and logs their registers and
+     spills;
   3. K1 against its plain PyTorch version on the card, direct7 and
      radius27, with bench.py's parity tolerances, and both device times;
      K1 given the pose on the card (the bench's evaluation probe: the
@@ -152,7 +154,10 @@ grid) on bench.py's aloam_leg world and trajectory, at bench.py's density
      ndt_newton; sharded_build_ndt_map and sharded_build_local_map (20
      keyframes) against build_ndt_map; the edge-sharded PCG on phase 12's
      2 048-node circle and the Schur solve on its 366-node one against the
-     single-rank optimizer; front_end_drive(mesh=) over phase 6's frames
+     single-rank optimizer (the sharded PCG on one rank is also held to the
+     bit to the single-rank plain PCG, `_solve_pcg`, which it runs; the
+     single-rank optimizer on the card launches the PCG kernel);
+     front_end_drive(mesh=) over phase 6's frames
      against the single-rank drive and the truth; the dry run
      (parallel/dryrun.py). Wall ms of each beside the unsharded function's.
      With `--parallel-out FILE` the local map's keyframes, grid corner,
@@ -189,7 +194,15 @@ grid) on bench.py's aloam_leg world and trajectory, at bench.py's density
      K1 and K3 none, no sweep cut, no map at capacity; its launches join
      the kernels line. The phase's seconds and the whole run's are logged.
 
-Phases 11-22 print the card's name and power limit on each summary line.
+ 23. the pose graph's PCG kernel (pose_pcg_phase, run after phase 12) at
+     the benchmark cell's graph (bench.shuttle_graph at the back end's
+     capacities): x against `_solve_pcg` (both against it in float64),
+     the same working steps, two launches equal, no host sync; device ms
+     beside the plain version's, the bound, the launches on each path and
+     one an LM iteration in `optimize_pose_graph`; it joins the kernels
+     line.
+
+Phases 11-23 print the card's name and power limit on each summary line.
 
 Any failed check ends the run with a non-zero exit code. The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -221,6 +234,7 @@ from lidar_slam_tpu_torch.bench import (
     device_label,
     loop_config,
     ndt_work,
+    shuttle_graph,
 )
 
 ALOAM_SWEEPS = 12
@@ -785,7 +799,7 @@ def build_kernels():
     """Phase 2: one nvcc per kernel source, all started together."""
     from lidar_slam_tpu_torch.ops.cuda import build
 
-    stems = ("ndt_fused", "ndt_newton", "knn_fused", "ndt_gather")
+    stems = ("ndt_fused", "ndt_newton", "knn_fused", "ndt_gather", "pose_pcg")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(stems)) as pool:
         infos = dict(zip(stems, pool.map(build.build, stems)))
@@ -1381,6 +1395,108 @@ def pose_graphs(dev, smi):
               f"pose graph {name}: card and CPU solves differ ({dpos}, {drot}, {dchi2})")
         out[name] = {"ms": ms, "iterations": it, "ms_per_iteration": ms / max(it, 1), "syncs": syncs[0], "busy_ms": busy}
     return out
+
+
+def pose_pcg_work(asm, steps):
+    """Bytes and fp32 FLOPs the PCG kernel's solve needs on these blocks in
+    `steps` working steps: every valid edge's and prior's blocks, the
+    lists, the edge ends and the free mask read once, x written once; the
+    node sums and inverses once, then a step's matvec (D_n p_n and both
+    off-diagonal products of each valid edge), the preconditioner, the
+    three dot products and the three vector updates."""
+    n_e, n_p = int(asm["Hii"].abs().sum((1, 2)).gt(0).sum()), int(asm["Hp"].abs().sum((1, 2)).gt(0).sum())
+    n, f = asm["n"], int(asm["free"].sum())
+    n_bytes = n_e * (3 * 144 + 2 * 24 + 8) + n_p * (144 + 24) + 4 * (2 * n_e + n_p) + 4 * (n + 1) + n + 24 * n
+    setup = (2 * n_e + n_p) * 42 + f * 300
+    per_step = 2 * 36 * f + 2 * 2 * 36 * n_e + 2 * 36 * f + 3 * 2 * 6 * f + 3 * 2 * 6 * f + 2 * 6 * f
+    return n_bytes, setup + steps * per_step
+
+
+def pose_pcg_phase(dev, smi):
+    """Phase 23: the PCG kernel (ops/cuda/pose_pcg.py) at the benchmark
+    cell's graph (bench.shuttle_graph: 540 nodes, 629 edges, 540 priors at
+    the back end's capacities 2 048 / 4 096 / 2 048; BackEndConfig's
+    optimizer) after two LM iterations: x against `_solve_pcg` (both held
+    to `_solve_pcg` in float64: the kernel's error at most three times the
+    float32 plain version's plus 1e-6 of the largest |x|), the same working
+    steps, two launches equal to the bit, no host sync; the kernel's device
+    ms (CUDA events; alone: torch.profiler) beside `_solve_pcg`'s and its
+    bound; launches on each path, and one an LM iteration in
+    `optimize_pose_graph`."""
+    import torch
+
+    from lidar_slam_tpu_torch.models import graph_optimizer as G
+    from lidar_slam_tpu_torch.ops.cuda import pose_pcg
+    from lidar_slam_tpu_torch.pipeline.back_end import BackEndConfig
+
+    cfg = BackEndConfig().optimizer
+    b = G.PoseGraphBuilder(2048, 4096, 2048, device=dev)
+    shuttle_graph(b, np.random.default_rng(0))
+    graph, _ = G.optimize_pose_graph(b.to_graph(), dataclasses.replace(cfg, max_iterations=2))
+    asm = G._assemble(graph, cfg)
+    lam = torch.full((), cfg.lm_lambda_init, device=dev)
+    lists = pose_pcg.incidence(graph.edge_ij, graph.edge_valid, graph.prior_node, graph.prior_valid, asm["n"])
+    grad = G._gradient(asm)
+
+    def kernel(count=None):
+        return pose_pcg.pose_pcg(asm, graph.edge_ij, lists, lam, cfg.pcg_tol, cfg.pcg_iters, count)
+
+    def plain(count=None):
+        return G._solve_pcg(asm, lam, grad, cfg, active_steps=count)
+
+    ck, cp = torch.zeros((), device=dev), torch.zeros((), device=dev)
+    with counting_syncs() as syncs:
+        xk = kernel(ck)
+    xk2, xp = kernel(), plain(cp)
+    asm64 = {k: (v.double() if torch.is_tensor(v) and v.is_floating_point() else v) for k, v in asm.items()}
+    x64 = G._solve_pcg(asm64, lam.double(), G._gradient(asm64), cfg)
+    scale = float(x64.abs().max())
+    err_k, err_p = float((xk.double() - x64).abs().max()), float((xp.double() - x64).abs().max())
+    steps = int(ck)
+    ms = device_ms(kernel)
+    plain_ms = device_ms(plain, reps=3)
+    events = [v for k, v in device_events(kernel).items() if "pose_pcg" in k]
+    # a launch's own device time; a profiler window may drop a launch's record
+    alone = sum(us for _, us in events) / max(sum(c for c, _ in events), 1) / 1e3
+    plain_events = device_events(plain, reps=1)
+    plain_launches = sum(c for c, _ in plain_events.values())
+    n_bytes, flops = pose_pcg_work(asm, steps)
+    bound_ms, bound_by = bound(n_bytes, flops)
+    launches = pose_pcg.launches
+    pose_pcg.launches = 0
+    _, st = G.optimize_pose_graph(graph, cfg)
+    launches_solve = pose_pcg.launches
+    log(f"[pose_pcg] {steps} working steps (plain {int(cp)}); |x - x64| {err_k:.3e} (plain {err_p:.3e}) of "
+        f"|x64| {scale:.3e}; two launches equal: {bool(torch.equal(xk, xk2))}; {syncs[0]} host syncs; device "
+        f"{ms:.4f} ms a solve (alone {alone:.4f}), {1e3 * ms / max(steps, 1):.2f} us a step; _solve_pcg {plain_ms:.2f} "
+        f"ms, {plain_launches} launches; bound {bound_ms:.6f} ms ({bound_by}: {n_bytes / 1e6:.3f} MB, "
+        f"{flops / 1e6:.2f} MFLOP); optimize_pose_graph: {launches_solve} launches in {st['iterations']} LM "
+        f"iterations ({smi})")
+    check(steps == int(cp), f"pose_pcg: {steps} working steps, _solve_pcg {int(cp)}")
+    check(err_k <= 3.0 * err_p + 1e-6 * scale, f"pose_pcg: x off by {err_k} (plain {err_p}, |x| {scale})")
+    check(torch.equal(xk, xk2), "pose_pcg: two launches differ")
+    check(syncs[0] == 0, f"pose_pcg: {syncs[0]} host syncs in a solve")
+    check(launches_solve == st["iterations"], f"pose_pcg: {launches_solve} launches in {st['iterations']} iterations")
+    return {"launches": launches + launches_solve, "launches_solve": launches_solve,
+            "iterations": st["iterations"], "max_abs_err": err_k, "plain_max_abs_err": err_p, "steps": steps,
+            "ms": ms, "alone_ms": alone, "plain_ms": plain_ms, "plain_launches": plain_launches,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def plain_pcg_solve(graph, cfg):
+    """`optimize_pose_graph` with `_solve_pcg` in the PCG kernel's place:
+    the single-rank plain PCG, which the edge-sharded solve runs on each
+    rank (on the card `optimize_pose_graph` launches the kernel)."""
+    from lidar_slam_tpu_torch.models import graph_optimizer as G
+
+    def step(poses, lam):
+        asm = G._assemble(dataclasses.replace(graph, poses=poses), cfg)
+        return G._solve_pcg(asm, lam, G._gradient(asm), cfg)
+
+    poses, stats = G.levenberg_marquardt(
+        graph.poses, graph.node_valid & ~graph.node_fixed, step,
+        lambda poses: G.graph_chi2(dataclasses.replace(graph, poses=poses), cfg), cfg)
+    return dataclasses.replace(graph, poses=poses), stats
 
 
 def session_workload():
@@ -2585,13 +2701,14 @@ def mesh_rank(mesh, inp, smi):
     cfg_pcg = G.GraphOptimizerConfig(max_iterations=MESH_PCG_ITERS, solver="pcg")
     g = b2048.to_graph()
     go, st = optimize_pose_graph_sharded(g, cfg_pcg, mesh)
-    ref, rst = G.optimize_pose_graph(g, cfg_pcg)
+    ref, rst = G.optimize_pose_graph(g, cfg_pcg)  # on the card: the PCG kernel
     dpos = float((go.poses[:2048, :3, 3] - ref.poses[:2048, :3, 3]).abs().max())
     if world == 1:
-        check(torch.equal(go.poses, ref.poses) and st["chi2_after"] == rst["chi2_after"],
-              f"{tag}: the edge-sharded PCG is not the single-rank PCG, bit for bit ({dpos} m)")
-    else:
-        check(dpos <= GRAPH_TOL["2048 nodes"][0], f"{tag}: the edge-sharded PCG {dpos} m from the single-rank one")
+        plain, pst = plain_pcg_solve(g, cfg_pcg)
+        dplain = float((go.poses[:2048, :3, 3] - plain.poses[:2048, :3, 3]).abs().max())
+        check(torch.equal(go.poses, plain.poses) and st["chi2_after"] == pst["chi2_after"],
+              f"{tag}: the edge-sharded PCG is not the single-rank plain PCG, bit for bit ({dplain} m)")
+    check(dpos <= GRAPH_TOL["2048 nodes"][0], f"{tag}: the edge-sharded PCG {dpos} m from the single-rank one")
     check(st["chi2_after"] < st["chi2_before"], f"{tag}: the edge-sharded PCG did not lower chi2")
     out["pcg_ms_it"] = host_ms(lambda: optimize_pose_graph_sharded(g, cfg_pcg, mesh), reps=1) / st["iterations"]
     out["pcg_ref_ms_it"] = host_ms(lambda: G.optimize_pose_graph(g, cfg_pcg), reps=1) / rst["iterations"]
@@ -2823,9 +2940,9 @@ def aloam_endurance_phase(work, smi, drive):
 
 
 def reset_launches():
-    from lidar_slam_tpu_torch.ops.cuda import knn_fused, ndt_fused, ndt_gather, ndt_newton
+    from lidar_slam_tpu_torch.ops.cuda import knn_fused, ndt_fused, ndt_gather, ndt_newton, pose_pcg
 
-    for m in (ndt_fused, ndt_newton, knn_fused, ndt_gather):
+    for m in (ndt_fused, ndt_newton, knn_fused, ndt_gather, pose_pcg):
         m.launches = 0
 
 
@@ -2936,6 +3053,8 @@ def phases(args, dev, kind, count, smi, t_start, aloam_sweeps) -> int:
     shutil.rmtree(work, ignore_errors=True)
     loop = loop_drive(dev, os.path.join(work, "loop"), smi)
     pose_graphs(dev, smi)
+    reset_launches()
+    pcg = pose_pcg_phase(dev, smi)
     t0 = time.perf_counter()
     gt_s, scans_s = session_workload()
     log(f"[workload] session: {len(scans_s)} scans simulated in {time.perf_counter() - t0:.1f} s")
@@ -3105,6 +3224,26 @@ def phases(args, dev, kind, count, smi, t_start, aloam_sweeps) -> int:
             "onehot_drive_ms_per_frame": onehot["ms_per_frame"],
             "onehot_drive_k3_ms_per_frame": onehot["k3_ms_per_frame"],
             "onehot_drive_device_ms_per_frame": onehot["device_ms_per_frame"],
+        },
+        {
+            "name": "pose_pcg",
+            "route": "cuda",
+            "source": "lidar_slam_tpu_torch/csrc/pose_pcg.cu",
+            "replaces": None,
+            "replaces_loop": "lidar_slam_tpu/models/graph_optimizer.py (_solve_pcg's lax.while_loop)",
+            "launches": pcg["launches"],
+            "max_abs_err": pcg["max_abs_err"],
+            "plain_max_abs_err": pcg["plain_max_abs_err"],
+            "ms": pcg["ms"],
+            "plain_ms": pcg["plain_ms"],
+            "bound_ms": pcg["bound_ms"],
+            "bound_by": pcg["bound_by"],
+            "library_ms": None,
+            "alone_ms": pcg["alone_ms"],
+            "steps": pcg["steps"],
+            "plain_launches": pcg["plain_launches"],
+            "launches_solve": pcg["launches_solve"],
+            "iterations_solve": pcg["iterations"],
         },
     ]}))
     log(f"[chip_smoke] phases 1-22 in {time.perf_counter() - t_start:.1f} s, phase 22 {aloam_endurance['seconds']:.1f} s")

@@ -80,12 +80,13 @@ def _prefetch(iterable, depth: int = 4):
         yield item
 
 
-def _path_kernels(ndt_configs, dev, aloam: bool = False, sharded: bool = False) -> list:
+def _path_kernels(ndt_configs, dev, aloam: bool = False, sharded: bool = False, pose_graph: bool = False) -> list:
     """The CUDA sources a path launches on `dev`: ndt_newton for each NDT
     configuration that aligns in one launch, else K1 (the fused gather) or
-    K3 (the onehot gather) under the host loop; K2 for A-LOAM. `sharded`:
-    the configurations align point-sharded over a mesh, always through the
-    host loop."""
+    K3 (the onehot gather) under the host loop; K2 for A-LOAM; pose_pcg
+    where the path solves a pose graph (its PCG, once the graph's capacity
+    leaves the dense solver). `sharded`: the configurations align
+    point-sharded over a mesh, always through the host loop."""
     from .models.registration.ndt import takes_newton_kernel
 
     if dev.type != "cuda":
@@ -101,6 +102,8 @@ def _path_kernels(ndt_configs, dev, aloam: bool = False, sharded: bool = False) 
             stems.add("ndt_gather")
     if aloam:
         stems.add("knn_fused")
+    if pose_graph:
+        stems.add("pose_pcg")
     return sorted(stems)
 
 
@@ -200,7 +203,7 @@ def _mapping_session(args, dev, mesh, health) -> int:
     front_ndt = [] if aloam else [cfg.front_end.ndt]
     stems = set(_path_kernels(front_ndt, dev, aloam=aloam, sharded=mesh is not None))
     if lead:
-        stems |= set(_path_kernels([cfg.loop_closing.ndt], dev))
+        stems |= set(_path_kernels([cfg.loop_closing.ndt], dev, pose_graph=True))
     _build_kernels(sorted(stems), log=lead)
     # ranks other than 0 only read a resumed store, never write or clear it
     store = KeyframeStore(args.out, resume=resume) if lead or resume else None

@@ -9,22 +9,25 @@ chosen on the graph's capacity as the JAX package chooses:
 - ``dense``: the 6N x 6N normal matrix, assembled by a fixed-order block
   scatter, factored by `torch.linalg.cholesky_ex` and solved by
   `cholesky_solve`;
-- ``pcg``: matrix-free block-Jacobi preconditioned CG on edge-wise matvecs.
+- ``pcg``: matrix-free block-Jacobi preconditioned CG on edge-wise matvecs;
+  on a CUDA device one launch of the hand-written kernel
+  `ops/cuda/pose_pcg.py` an LM iteration, elsewhere `_solve_pcg`.
 
-Every per-node sum is `ops.pointcloud.scatter_sum`, which adds in the same
-order on every run (no `index_add` float atomics), so a solve on the card
-repeats to the bit. On the CPU a solve runs on one torch thread, so it
-gives the one-thread bits at any thread count (chi2, the PCG's dot products
-and LAPACK's blocked Cholesky split their work, and so their rounding,
-among torch's threads).
+Every per-node sum is `ops.pointcloud.scatter_sum`, or in the kernel a sum
+over incidence lists; both add in the same order on every run (no
+`index_add` float atomics), so a solve on the card repeats to the bit. On
+the CPU a solve runs on one torch thread, so it gives the one-thread bits
+at any thread count (chi2, the PCG's dot products and LAPACK's blocked
+Cholesky split their work, and so their rounding, among torch's threads).
 
 Host synchronisation: the JAX optimizer is one device program, an LM
-`lax.while_loop` around a PCG `lax.while_loop`. Here the PCG loop runs its
-`pcg_iters` steps with the state frozen by `torch.where` once the JAX loop's
-condition fails, which gives the while-loop's result and reads nothing on
-the host; the LM loop reads one 4-float tensor (its done flag and the
-statistics) per iteration; the factorizations use the `_ex` forms, which
-check nothing on the host.
+`lax.while_loop` around a PCG `lax.while_loop`. Here the PCG is one kernel
+launch that stops where the JAX loop's condition fails or, in
+`_solve_pcg`, runs its `pcg_iters` steps with the state frozen by
+`torch.where` once that condition fails, which gives the while-loop's
+result; neither reads anything on the host. The LM loop reads one 4-float
+tensor (its done flag and the statistics) per iteration; the
+factorizations use the `_ex` forms, which check nothing on the host.
 
 Node parameterization: right perturbation T <- T exp(delta), delta =
 (rho, phi); fixed nodes are clamped.
@@ -41,6 +44,7 @@ import torch
 
 from .. import device as _default_device
 from ..geom.se3 import matrix_to_quat, pose_inverse, se3_exp, se3_log, so3_hat
+from ..ops.cuda import pose_pcg
 from ..ops.pointcloud import one_torch_thread, scatter_sum
 from ..utils import watchdog
 
@@ -304,18 +308,30 @@ def optimize_pose_graph(
     Returns (optimized graph on its device, stats as host numbers). One
     host read per LM iteration: the done flag, with chi2 and lambda.
 
+    On a CUDA device the PCG is the hand-written kernel
+    (ops/cuda/pose_pcg.py), one launch an LM iteration, summing over
+    incidence lists built once a solve; on the CPU it is `_solve_pcg`.
+
     Under an active run (utils.watchdog) the solve is the `pose_graph` span,
-    counting `lm_iterations` and, for the PCG, `pcg_steps` (every step run)
-    and `pcg_active_steps` (the steps that worked, summed on the device and
-    read with the iterations' own host read)."""
+    counting `lm_iterations` and, for the PCG, `pcg_steps` (`pcg_iters` an
+    iteration, the JAX loop's budget), `pcg_active_steps` (the steps that
+    worked, summed on the device and read with the iterations' own host
+    read) and `pcg_launches` (the kernel's launches)."""
     with watchdog.span("pose_graph"):
         dense = uses_dense(cfg, graph.poses.shape[0])
+        kernel = not dense and graph.poses.device.type == "cuda"
         active_steps = None
         if not dense and watchdog.active_run() is not None:
             active_steps = torch.zeros((), dtype=torch.float32, device=graph.poses.device)
+        if kernel:  # the node sums' order, once a solve
+            lists = pose_pcg.incidence(graph.edge_ij, graph.edge_valid, graph.prior_node, graph.prior_valid,
+                                       graph.poses.shape[0])
+        launches = pose_pcg.launches
 
         def step(poses, lam):
             asm = _assemble(dataclasses.replace(graph, poses=poses), cfg)
+            if kernel:
+                return pose_pcg.pose_pcg(asm, graph.edge_ij, lists, lam, cfg.pcg_tol, cfg.pcg_iters, active_steps)
             b = _gradient(asm)
             return _solve_dense(asm, lam, b) if dense else _solve_pcg(asm, lam, b, cfg, active_steps=active_steps)
 
@@ -329,6 +345,7 @@ def optimize_pose_graph(
         if active_steps is not None:
             watchdog.count("pcg_steps", stats["iterations"] * cfg.pcg_iters)
             watchdog.count("pcg_active_steps", stats.pop("pcg_active_steps"))
+            watchdog.count("pcg_launches", pose_pcg.launches - launches)
         return dataclasses.replace(graph, poses=poses), stats
 
 
