@@ -22,10 +22,25 @@ laps; the window a whole number of steady laps, and a traced run's tail
 fixed by the run's `--seconds` alone (`window_laps`): the same frames in
 every run, whatever the host's speed.
 
-Sweeps are made on the device in one pass a frame (the world transformed,
-the range gate, the kept returns drawn without replacement, noise and
-dropout) and held on the host as the finite returns, the way a LiDAR's
-reader hands them over.
+Sweeps are made on the device in one pass a frame and held on the host as
+the finite returns, the way a LiDAR's reader hands them over. The
+configuration's `sweep` names the sensor:
+
+- `"draw"` (the default, where `sensor` is absent): the world and the
+  trucks' 200 samples transformed, the range gate, `rows` returns drawn
+  without replacement, noise and dropout on each coordinate; no ring layout
+  and no occlusion.
+- `"spinning"`: a spinning multi-beam sensor, one return a beam direction.
+  `elevations_deg` names the beams (ring r is the r-th angle), and
+  `azimuth_bins` the directions a turn; `rows` is rings x bins. Every
+  surface sample in range goes to its nearest beam by elevation, within a
+  gate of max(half the smallest beam gap, 0.2 deg), and to its azimuth bin;
+  a (ring, bin) cell keeps the least range (near surfaces occlude far ones)
+  and reports it along the cell's centre direction, with range noise and
+  dropout. The trucks' sides are sampled at the facades' areal density
+  (the mix's `density` / 4 a square metre), so that they occlude the street
+  behind them. The returns come ring by ring, azimuth ascending within a
+  ring.
 """
 
 from __future__ import annotations
@@ -78,13 +93,12 @@ def corridor(length: float, width: float, density: float, seed: int, wall_height
 @dataclass(frozen=True)
 class Truck:
     """A box driving at a constant planar velocity; a sweep sees its four
-    sides, `points` returns a sweep."""
+    sides (`truck_sides`)."""
 
     center: tuple
     heading: float
     velocity: tuple
     size: tuple = (4.0, 2.0, 2.0)
-    points: int = 200
 
     def center_at(self, t: float) -> np.ndarray:
         c = np.asarray(self.center, np.float64).copy()
@@ -287,26 +301,43 @@ def _stream(seed: int, frame: int, channel: int) -> int:
     return _i64((seed * 0x100000001B3 + frame * 0x1000193 + channel * 0x9E3779B1) & _M64)
 
 
-def _sweep(world, trucks, T, t, seed, frame, rows, max_range, min_range, noise, dropout):
-    """One sweep on the world's device: (finite returns [n, 3] float32 on
-    the host, boxes [B, 8]). Its random numbers are hashes of (seed, frame,
-    channel, index), the same on every device."""
-    dev = world.device
-    ar = lambda n: torch.arange(n, dtype=torch.int64, device=dev)  # noqa: E731
-    parts = [world]
-    for k, tr in enumerate(trucks):
-        m = tr.points // 4
+def truck_sides(trucks, t: float, seed: int, frame: int, counts, dev) -> torch.Tensor:
+    """World samples [sum of 2 m_x + 2 m_y, 3] float64 of the trucks' four
+    sides at time t, truck by truck: m_x on each of the faces at +-x, then
+    m_y on each at +-y (`counts[k]` is truck k's (m_x, m_y)), drawn from
+    the channels 10 + 2k and 11 + 2k of truck k, all in one hash."""
+    sizes = [2 * m_x + 2 * m_y for m_x, m_y in counts]
+    if not sizes:
+        return torch.zeros((0, 3), dtype=torch.float64, device=dev)
+    keys = [_stream(seed, frame, c + 2 * k) + torch.arange(n, dtype=torch.int64, device=dev)
+            for c in (10, 11) for k, n in enumerate(sizes)]
+    draws = uniform(torch.cat(keys))
+    u_all, z_all = draws[:sum(sizes)] * 2.0 - 1.0, draws[sum(sizes):]
+    parts, o = [], 0
+    for tr, (m_x, m_y), n in zip(trucks, counts, sizes):
         hx, hy, hz = (s / 2 for s in tr.size)
-        u = uniform(_stream(seed, frame, 10 + 2 * k) + ar(4 * m)).reshape(4, m) * 2.0 - 1.0
-        z = uniform(_stream(seed, frame, 11 + 2 * k) + ar(4 * m)).reshape(4, m) * (2 * hz) - hz
-        face_x = torch.tensor([hx, -hx], dtype=torch.float64, device=dev)[:, None].expand(2, m)
-        face_y = torch.tensor([hy, -hy], dtype=torch.float64, device=dev)[:, None].expand(2, m)
-        local = torch.cat([torch.stack([face_x, u[:2] * hy, z[:2]], -1).reshape(-1, 3),
-                           torch.stack([u[2:] * hx, face_y, z[2:]], -1).reshape(-1, 3)])
+        u, z = u_all[o:o + n], z_all[o:o + n] * (2 * hz) - hz
+        o += n
+        face_x = torch.tensor([hx, -hx], dtype=torch.float64, device=dev)[:, None].expand(2, m_x)
+        face_y = torch.tensor([hy, -hy], dtype=torch.float64, device=dev)[:, None].expand(2, m_y)
+        local = torch.cat([torch.stack([face_x, u[:2 * m_x].reshape(2, m_x) * hy, z[:2 * m_x].reshape(2, m_x)],
+                                       -1).reshape(-1, 3),
+                           torch.stack([u[2 * m_x:].reshape(2, m_y) * hx, face_y, z[2 * m_x:].reshape(2, m_y)],
+                                       -1).reshape(-1, 3)])
         ch, sh = math.cos(tr.heading), math.sin(tr.heading)
         R = torch.tensor([[ch, -sh, 0.0], [sh, ch, 0.0], [0.0, 0.0, 1.0]], dtype=torch.float64, device=dev)
         parts.append(local @ R.T + torch.as_tensor(tr.center_at(t), device=dev))
-    pts = torch.cat(parts)
+    return torch.cat(parts)
+
+
+def _sweep(world, trucks, T, t, seed, frame, rows, max_range, min_range, noise, dropout, truck_points):
+    """One sweep of the draw sensor on the world's device: (finite returns
+    [n, 3] float32 on the host, boxes [B, 8]). Its random numbers are hashes
+    of (seed, frame, channel, index), the same on every device."""
+    dev = world.device
+    ar = lambda n: torch.arange(n, dtype=torch.int64, device=dev)  # noqa: E731
+    m = truck_points // 4
+    pts = torch.cat([world, truck_sides(trucks, t, seed, frame, [(m, m)] * len(trucks), dev)])
     Tinv = torch.as_tensor(np.linalg.inv(T.astype(np.float64)), device=dev)
     local = pts @ Tinv[:3, :3].T + Tinv[:3, 3]
     r = torch.linalg.norm(local, dim=1)
@@ -320,21 +351,135 @@ def _sweep(world, trucks, T, t, seed, frame, rows, max_range, min_range, noise, 
     gauss = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(2.0 * math.pi * u2)
     keep = uniform(_stream(seed, frame, 4) + sel) >= dropout
     out = (local[sel] + noise * gauss)[keep].to(torch.float32).cpu().numpy()
-    return out, np.stack([tr.bbox(T, t) for tr in trucks]) if trucks else np.zeros((0, 8), np.float32)
+    return out, _boxes(trucks, T, t)
+
+
+def _boxes(trucks, T, t) -> np.ndarray:
+    return np.stack([tr.bbox(T, t) for tr in trucks]) if trucks else np.zeros((0, 8), np.float32)
+
+
+@dataclass(frozen=True)
+class Spinning:
+    """A spinning sensor's beams: `elevations` (deg) one angle a ring,
+    `bins` azimuth directions a turn; `gate` (deg) is how far from its
+    nearest beam a surface sample may lie and still be seen."""
+
+    elevations: tuple
+    bins: int
+
+    @staticmethod
+    def of(sweep: dict) -> "Spinning":
+        s = Spinning(tuple(float(e) for e in sweep["elevations_deg"]), int(sweep["azimuth_bins"]))
+        if len(s.elevations) < 2 or s.bins < 1 or sweep["rows"] != len(s.elevations) * s.bins:
+            raise ValueError(f"a spinning sweep's rows ({sweep['rows']}) must be its rings "
+                             f"({len(s.elevations)}, at least 2) x its azimuth bins ({s.bins})")
+        return s
+
+    @property
+    def gate(self) -> float:
+        e = np.sort(np.asarray(self.elevations))
+        return max(float(np.min(np.diff(e))) / 2.0, 0.2)
+
+    def cells(self, local: torch.Tensor, min_range: float, max_range: float):
+        """The panorama of sensor-frame samples `local` [N, 3] float64:
+        (cell [n] int64, the least range [n] float64) of every hit cell
+        ring * bins + bin, ascending. A cell's least range is a
+        scatter_reduce "amin", which no order of the samples changes; only
+        the samples a beam sees take part, since every atomic update of one
+        cell waits for the one before it."""
+        dev = local.device
+        elev = torch.tensor(self.elevations, dtype=torch.float64, device=dev)
+        up, order = torch.sort(elev)
+        r = torch.linalg.norm(local, dim=1)
+        el = torch.rad2deg(torch.atan2(local[:, 2], torch.hypot(local[:, 0], local[:, 1])))
+        ring = order[torch.bucketize(el, (up[:-1] + up[1:]) / 2.0)]
+        seen = torch.nonzero((r >= min_range) & (r <= max_range) & (torch.abs(el - elev[ring]) <= self.gate))[:, 0]
+        local, r, ring = local[seen], r[seen], ring[seen]
+        az = torch.atan2(local[:, 1], local[:, 0])
+        b = torch.clamp(((az + math.pi) / (2.0 * math.pi) * self.bins).to(torch.int64), 0, self.bins - 1)
+        pan = torch.full((len(self.elevations) * self.bins,), math.inf, dtype=torch.float64, device=dev)
+        pan.scatter_reduce_(0, ring * self.bins + b, r, "amin")
+        hit = torch.nonzero(torch.isfinite(pan))[:, 0]
+        return hit, pan[hit]
+
+    def directions(self, cell: torch.Tensor) -> torch.Tensor:
+        """Unit vectors [n, 3] float64 of the cells' centres: the ring's
+        elevation, the bin's middle azimuth."""
+        elev = torch.deg2rad(torch.tensor(self.elevations, dtype=torch.float64, device=cell.device))[cell // self.bins]
+        az = ((cell % self.bins).to(torch.float64) + 0.5) / self.bins * (2.0 * math.pi) - math.pi
+        return torch.stack([torch.cos(elev) * torch.cos(az), torch.cos(elev) * torch.sin(az), torch.sin(elev)], -1)
+
+
+def truck_counts(tr: Truck, density: float) -> tuple:
+    """A truck's samples (m_x, m_y) a face at the facades' areal density
+    (`density` / 4 a square metre, as `corridor` samples its walls)."""
+    dx, dy, dz = tr.size
+    return round(dy * dz * density / 4), round(dx * dz * density / 4)
+
+
+@dataclass
+class Surfaces:
+    """What a spinning sweep looks at: the world's samples `world` [M, 3]
+    float64 on the device, in ascending x (`xs`, on the host), and the
+    trucks, sampled at the facades' density each frame."""
+
+    world: torch.Tensor
+    xs: np.ndarray
+    trucks: list
+    density: float
+
+    @staticmethod
+    def of(world: np.ndarray, trucks: list, density: float, dev) -> "Surfaces":
+        world = world[np.argsort(world[:, 0], kind="stable")]
+        return Surfaces(torch.as_tensor(world, device=dev).to(torch.float64), world[:, 0].astype(np.float64),
+                        trucks, density)
+
+    def near(self, x: float, reach: float, t: float, seed: int, frame: int) -> torch.Tensor:
+        """The world's samples within `reach` of x along x (a slice: what
+        lies farther is out of range) and the trucks' sides at time t."""
+        a, b = np.searchsorted(self.xs, (x - reach, x + reach))
+        sides = truck_sides(self.trucks, t, seed, frame, [truck_counts(tr, self.density) for tr in self.trucks],
+                            self.world.device)
+        return torch.cat([self.world[a:b], sides])
+
+
+def _spinning_sweep(surfaces: Surfaces, T, t, seed, frame, sensor: Spinning, max_range, min_range, noise, dropout):
+    """One sweep of the spinning sensor on the surfaces' device: (finite
+    returns [n, 3] float32 on the host, ring by ring and azimuth ascending
+    within a ring; boxes [B, 8]; the returns' cells [n] int64 on the
+    device). Range noise and dropout are hashes of (seed, frame, channel,
+    cell) on channels 5-7."""
+    Tinv = torch.as_tensor(np.linalg.inv(T.astype(np.float64)), device=surfaces.world.device)
+    pts = surfaces.near(float(T[0, 3]), max_range, t, seed, frame)
+    cell, r = sensor.cells(pts @ Tinv[:3, :3].T + Tinv[:3, 3], min_range, max_range)
+    u = uniform(torch.cat([_stream(seed, frame, c) + cell for c in (5, 6, 7)])).reshape(3, -1)
+    gauss = torch.sqrt(-2.0 * torch.log(u[0])) * torch.cos(2.0 * math.pi * u[1])
+    keep = u[2] >= dropout
+    cell = cell[keep]
+    out = ((r + noise * gauss)[keep, None] * sensor.directions(cell)).to(torch.float32).cpu().numpy()
+    return out, _boxes(surfaces.trucks, T, t), cell
 
 
 def make_drive(mix: dict, sweep: dict, device, seconds: float, trace: bool = False) -> Drive:
     """The drive of `mix` (a traffic file's parameters: the world, the route,
     the GNSS and the recording's seed) under the sensor of `sweep` (the
-    configuration's) for a run of `seconds`, with a traced run's tail when
-    `trace`, its sweeps made on `device`: the same drive on every device
-    and in every run."""
+    configuration's: `sensor` "draw", the default, or "spinning", with its
+    range gate, noise, dropout and rate) for a run of `seconds`, with a
+    traced run's tail when `trace`, its sweeps made on `device`: the same
+    drive on every device and in every run."""
     w, rt, gn = mix["world"], mix["route"], mix["gnss"]
     seed = int(mix["recording_seed"])
+    kind = sweep.get("sensor", "draw")
+    if kind not in ("draw", "spinning"):
+        raise ValueError(f"unknown sensor {kind!r}: draw or spinning")
+    spinning = Spinning.of(sweep) if kind == "spinning" else None
     dev = torch.device(device)
-    world = torch.as_tensor(corridor(w["length_m"], w["width_m"], w["density"], w["world_seed"]), device=dev)
-    world = world.to(torch.float64)
+    world = corridor(w["length_m"], w["width_m"], w["density"], w["world_seed"])
     trucks = [Truck(tuple(c), float(h), tuple(v)) for c, h, v in w["trucks"]]
+    if spinning is None:
+        world = torch.as_tensor(world, device=dev).to(torch.float64)
+    else:
+        surfaces = Surfaces.of(world, trucks, w["density"], dev)
     path = route(rt)
     setup = path.lap1 + (rt["setup_laps"] - 1) * path.steady
     laps = window_laps(rt, seconds, path.steady)
@@ -343,9 +488,12 @@ def make_drive(mix: dict, sweep: dict, device, seconds: float, trace: bool = Fal
                       for k in range(n)])
     period = 1.0 / sweep["rate_hz"]
     points, bboxes = [], []
+    sensing = sweep["max_range_m"], sweep["min_range_m"], sweep["noise_m"], sweep["dropout"]
     for i, T in enumerate(poses):
-        pts, boxes = _sweep(world, trucks, T, i * period, seed, i, sweep["rows"], sweep["max_range_m"],
-                            sweep["min_range_m"], sweep["noise_m"], sweep["dropout"])
+        if spinning is None:
+            pts, boxes = _sweep(world, trucks, T, i * period, seed, i, sweep["rows"], *sensing, truck_points=200)
+        else:
+            pts, boxes, _ = _spinning_sweep(surfaces, T, i * period, seed, i, spinning, *sensing)
         points.append(pts)
         bboxes.append(boxes)
     rng = np.random.default_rng(seed)
