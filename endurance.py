@@ -37,9 +37,9 @@ endurance_witness.py replays through the JAX back end.
 keyframes, each sweep simulate_spinning_scan's 64 x 2 048 panorama
 (N_SCANS x N_AZIMUTH rows, a real HDL-64's ring layout, which A-LOAM's
 feature extraction needs), simulated by SIM_WORKERS processes ahead of the
-frame loop. The CLI sizes its A-LOAM sweep at 65 536 rows under
-`--synthetic` (cli.py's rule, the JAX CLI's); run_mapping gives it the
-drive's RAW_ROWS and checks that no sweep holds more returns than that. It
+frame loop. The CLI sizes its A-LOAM sweep at its configuration's
+`aloam.features.capacity` (131 072 without a section; the JAX CLI's 65 536
+under `--synthetic`); run_mapping gives it the drive's RAW_ROWS and checks that no sweep holds more returns than that. It
 also records each sweep's corner and surf map fill, and K2 (window_knn)
 runs K2_PER_SWEEP times a sweep on the card. `--aloam-states auto
 --states-out F` keeps the port's A-LOAM state before and after five frames
@@ -55,6 +55,7 @@ Exits non-zero when a check fails; imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -494,14 +495,14 @@ def fold_drops(before, after, pose, cfg, fill) -> list:
     capacity) voxels). A full one's fold is replayed on the same inputs
     without the capacity: the state before the frame's maps, the frame's
     features (the state after holds them) and pose (the step's T_map: the
-    CLI's odometry starts at the identity). voxel_downsample keeps the
-    voxels in key order, x-major from the cloud's least corner, so it drops
-    those of the largest x."""
+    CLI's odometry starts at the identity). The fold keeps the map around
+    the sensor (mapping.keep_near): it drops the voxels farthest from the
+    sensor, those outside laserMapping's window first."""
     import torch
 
     from lidar_slam_tpu_torch.geom.se3 import transform_points
     from lidar_slam_tpu_torch.ops.pointcloud import PointCloud, voxel_downsample
-    from lidar_slam_tpu_torch.pipeline.aloam.mapping import downsample_stacks
+    from lidar_slam_tpu_torch.pipeline.aloam.mapping import downsample_stacks, keep_near
 
     out, stacks, T = [], None, None
     for j, (name, leaf) in enumerate((("corner", cfg.line_res), ("surf", cfg.plane_res))):
@@ -516,7 +517,8 @@ def fold_drops(before, after, pose, cfg, fill) -> list:
         msk = torch.cat([m.mask, stacks[j].mask], dim=0) & torch.all(torch.abs(pts - T[:3, 3]) <= cfg.crop_radius,
                                                                        dim=-1)
         full = voxel_downsample(PointCloud(points=pts, mask=msk), leaf)
-        x = torch.where(full.mask[cap:], full.points[cap:, 0], math.nan)
+        dropped = full.mask & ~keep_near(full, T[:3, 3], cap)[1]
+        x = torch.where(dropped, full.points[:, 0], math.nan)
         offered, lo, hi = torch.stack([full.mask.sum().float(), x.nan_to_num(math.inf).min(),
                                        x.nan_to_num(-math.inf).max()]).tolist()
         out.append([offered, offered - cap, lo, hi] if offered > cap else [offered, 0.0, math.nan, math.nan])
@@ -640,14 +642,14 @@ def run_mapping(drive: Drive, out_dir: str, config_path: str, n_frames: int = No
             self.before, self.sweep = self.state, preloaded if preloaded is not None else self.preload(points, mask)
             return super().update(points, mask, bboxes, self.sweep)
 
-    def aloam_front_end(capacity: int = None, device=None):
+    def aloam_front_end(config, device=None):
         """cli._AloamFrontEnd's pipeline at the drive's sweep rows (the CLI
-        asks `capacity`), or at aloam_configs, recording."""
+        asks its config's `aloam.features.capacity`), or at aloam_configs,
+        recording."""
         cfgs = aloam_configs
         if cfgs is None:
-            made = base_aloam(capacity=drive.n_points, device="cpu")
-            cfgs = (made.fe_cfg, made.odo_cfg, made.map_cfg)
-        st["cli_capacity"] = capacity
+            cfgs = (dataclasses.replace(config.features, capacity=drive.n_points), config.odometry, config.mapping)
+        st["cli_capacity"] = config.features.capacity
         objs["fe"] = RecordingAloam(*cfgs, device=device)
         return objs["fe"]
 

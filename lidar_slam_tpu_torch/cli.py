@@ -44,6 +44,8 @@ import time
 
 import numpy as np
 
+FRONT_ENDS = ("ndt", "aloam")  # mapping's front ends: --front-end, or the config's front_end_method
+
 
 def _prefetch(iterable, depth: int = 4):
     """Run a frame source on a background thread with a bounded queue — the
@@ -208,7 +210,7 @@ def _mapping_session(args, dev, mesh, health) -> int:
     # ranks other than 0 only read a resumed store, never write or clear it
     store = KeyframeStore(args.out, resume=resume) if lead or resume else None
     if aloam:
-        fe = _AloamFrontEnd(capacity=65536 if getattr(args, "synthetic", None) else 131072, device=dev)
+        fe = _AloamFrontEnd(cfg.aloam, device=dev)
     else:
         fe = FrontEnd(cfg.front_end, device=dev, mesh=mesh)
     if lead:
@@ -411,22 +413,18 @@ def _run_matching(args, dev) -> int:
     return 0
 
 
-def _AloamFrontEnd(capacity: int = 131072, device=None):
+def _AloamFrontEnd(config=None, device=None):
     """A-LOAM front end behind the FrontEnd.update API — the
     mapping_with_aloam.launch wiring (A-LOAM odometry+mapping feeding the
     lidar_localization back end): a sweep is one stream of device work and
-    one host read (pipeline/aloam/pipeline.py). `capacity` sizes the padded
-    sweep (131072 covers KITTI HDL-64; the synthetic spinning simulator
-    emits 65536)."""
-    from .pipeline.aloam import AloamPipeline, FeatureExtractionConfig
+    one host read (pipeline/aloam/pipeline.py). `config` is the YAML's
+    `aloam` section (pipeline.aloam.AloamConfig; its defaults without one);
+    its `features.capacity` sizes the padded sweep, and a sweep with more
+    returns is refused, never cut."""
+    from .pipeline.aloam import AloamConfig, AloamPipeline
 
-    return AloamPipeline(
-        FeatureExtractionConfig(
-            n_scans=64, min_range=2.5, capacity=capacity,
-            max_sharp=1024, max_less_sharp=8192, max_flat=2048, max_less_flat=16384,
-        ),
-        device=device,
-    )
+    cfg = AloamConfig() if config is None else config
+    return AloamPipeline(cfg.features, cfg.odometry, cfg.mapping, device=device)
 
 
 def _run_inspect(args) -> int:
@@ -559,9 +557,10 @@ def main(argv=None) -> int:
              "(NCCL), or every rank on the CPU with --device cpu (gloo)",
     )
     mp.add_argument(
-        "--front-end", dest="front_end", choices=["ndt", "aloam"], default="ndt",
+        "--front-end", dest="front_end", choices=FRONT_ENDS, default=None,
         help="odometry front end: NDT scan-to-map (mapping.launch) or "
-             "A-LOAM two-stage (mapping_with_aloam.launch)",
+             "A-LOAM two-stage (mapping_with_aloam.launch); default: the "
+             "config's front_end_method (ndt without one)",
     )
     mp.add_argument(
         "--resume", action="store_true",
@@ -593,6 +592,12 @@ def main(argv=None) -> int:
         return bench.main([] if args.device is None else ["--device", args.device])
     if not (args.kitti_raw or args.kitti_odometry or args.synthetic):
         p.error(f"{args.cmd} needs --kitti-raw, --kitti-odometry or --synthetic N")
+    if args.cmd == "mapping" and args.front_end is None:
+        from .config import load_config
+
+        args.front_end = load_config(args.config).front_end_method
+        if args.front_end not in FRONT_ENDS:
+            p.error(f"front_end_method {args.front_end!r} in {args.config}: one of {', '.join(FRONT_ENDS)}")
     if args.cmd == "mapping" and args.mesh_devices > 1:
         return _run_mapping_mesh(p, args)
     from . import device

@@ -24,6 +24,7 @@ from .models.graph_optimizer import GraphOptimizerConfig
 from .models.registration.icp import ICPConfig
 from .models.registration.ndt import NDTConfig
 from .models.scan_context import ScanContextConfig
+from .pipeline.aloam.pipeline import AloamConfig
 from .pipeline.back_end import BackEndConfig
 from .pipeline.data_pretreat import DataPretreatConfig
 from .pipeline.front_end import FrontEndConfig
@@ -42,6 +43,8 @@ class SlamConfig:
     loop_closing: LoopClosingConfig = LoopClosingConfig()
     viewer: ViewerConfig = ViewerConfig()
     matching: MatchingConfig = MatchingConfig()
+    aloam: AloamConfig = AloamConfig()  # the A-LOAM front end (mapping_with_aloam.launch)
+    front_end_method: str = "ndt"  # mapping's front end, "ndt" or "aloam"; `--front-end` overrides it
     data_dir: str = "slam_data"
 
 
@@ -189,7 +192,11 @@ def parse_yaml(text: str):
 
 
 # -- the config tree ---------------------------------------------------------
-def _build(cls, data: dict):
+def _build(cls, data: dict, base=None):
+    """`cls` from a YAML mapping: its keys over the class defaults, or over
+    the instance `base`. A sub-section named in _NESTED starts from its
+    class defaults, as in the JAX package; any other starts from the
+    field's default instance (the `aloam` section's stages)."""
     fields = {f.name: f for f in dataclasses.fields(cls)}
     kwargs = {}
     for key, value in data.items():
@@ -197,14 +204,13 @@ def _build(cls, data: dict):
             raise KeyError(f"{cls.__name__}: unknown config key '{key}'")
         if isinstance(value, dict):
             sub = _NESTED.get(key)
-            if sub is None:
-                sub = fields[key].default.__class__
-            kwargs[key] = _build(sub, value)
+            default = fields[key].default
+            kwargs[key] = _build(sub, value) if sub is not None else _build(type(default), value, base=default)
         elif isinstance(value, list):
             kwargs[key] = tuple(value)
         else:
             kwargs[key] = value
-    return cls(**kwargs)
+    return cls(**kwargs) if base is None else dataclasses.replace(base, **kwargs)
 
 
 def load_config(path: Optional[str] = None, overrides: Optional[dict] = None) -> SlamConfig:

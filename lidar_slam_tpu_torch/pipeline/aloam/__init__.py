@@ -1,7 +1,7 @@
 from .feature_extraction import FeatureExtractionConfig, ScanFeatures, extract_features
-from .mapping import AloamMapping, AloamMappingConfig, downsample_stacks, map_update, mapping_step
+from .mapping import AloamMapping, AloamMappingConfig, downsample_stacks, keep_near, map_update, mapping_step
 from .odometry import AloamOdometry, AloamOdometryConfig, odometry_step
-from .pipeline import AloamPipeline, AloamState, aloam_drive, aloam_step, init_aloam_state
+from .pipeline import AloamConfig, AloamPipeline, AloamState, aloam_drive, aloam_step, init_aloam_state
 
 __all__ = [
     "FeatureExtractionConfig",
@@ -15,6 +15,8 @@ __all__ = [
     "downsample_stacks",
     "mapping_step",
     "map_update",
+    "keep_near",
+    "AloamConfig",
     "AloamPipeline",
     "AloamState",
     "aloam_drive",

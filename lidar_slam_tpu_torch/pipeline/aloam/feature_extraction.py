@@ -59,6 +59,7 @@ class ScanFeatures:
     less_sharp_time: torch.Tensor
     flat_time: torch.Tensor
     less_flat_time: torch.Tensor
+    capped: torch.Tensor = None  # [] int32: selected rows the four caps (max_sharp ... max_less_flat) cut off
 
 
 _i32 = torch.int32
@@ -293,6 +294,9 @@ def extract_features(points, mask, cfg: FeatureExtractionConfig = FeatureExtract
     lsharp, lsharp_ring, lsharp_time = _compact_topk(pts, rng_s, tim, less_sharp_sel, cfg.max_less_sharp)
     flat, flat_ring, flat_time = _compact_topk(pts, rng_s, tim, flat_sel, cfg.max_flat)
     lflat_cloud, lflat_ring, _ = _compact_topk(pts, rng_s, tim, less_flat_sel, cfg.max_less_flat)
+    capped = sum(torch.clamp(sel.sum(dtype=_i32) - cap, min=0) for sel, cap in (
+        (sharp_sel, cfg.max_sharp), (less_sharp_sel, cfg.max_less_sharp), (flat_sel, cfg.max_flat),
+        (less_flat_sel, cfg.max_less_flat)))
     # less-flat is voxel-downsampled (:386-394). The ring id rides the weight
     # channel through the centroid reduction — the same approximation as
     # PCL's intensity-averaging of scanID in the reference.
@@ -314,4 +318,5 @@ def extract_features(points, mask, cfg: FeatureExtractionConfig = FeatureExtract
         less_sharp_time=lsharp_time,
         flat_time=flat_time,
         less_flat_time=torch.zeros(cfg.max_less_flat, dtype=torch.float32, device=dev),
+        capped=capped,
     )

@@ -3,7 +3,14 @@ lidar_slam_tpu/pipeline/aloam/mapping.py; see there for the mapping to
 laserMapping.cpp).
 
 The corner/surf feature maps are flat fixed-capacity world-frame clouds,
-voxel-downsampled and box-cropped around the sensor on every fold. Corner
+voxel-downsampled and box-cropped around the sensor on every fold. A fold
+that offers more voxels than a map holds keeps the map around the sensor,
+as laserMapping's cube array does: it evicts the voxels farthest from the
+sensor first, those outside laserMapping's 5 x 5 x 3 window of 50 m cubes
+around the sensor's cube before any inside it (`keep_near`). Under
+capacity the fold keeps every voxel, in key order, as the JAX package's
+does; at capacity the JAX fold keeps the first voxels in key order
+instead, whichever the sensor is near. Corner
 factors come from a 5-NN line test (closed-form 3x3 eigendecomposition),
 surf factors from a 5-NN plane fit (adjugate 3x3 solve); Gauss-Newton with
 Huber weights refines the pose. As in odometry, nothing here synchronises
@@ -25,8 +32,15 @@ from ...ops.eigh3 import sym_eigh3
 from ...ops.hashgrid import build_bucket_grid, knn_query
 from ...ops.linalg3 import solve3
 from ...ops.pointcloud import PointCloud, voxel_downsample
-from .feature_extraction import ScanFeatures
+from .feature_extraction import ScanFeatures, _scatter_rows
 from .odometry import _norm, _use_fused, gauss_newton_update, normal_equations, sort_by_cell
+
+# laserMapping's cube array (laserMapping.cpp:74-104): 50 m cubes centred on multiples of 50 m, and the
+# 5 x 5 x 3 cubes around the sensor's that scan-to-map matching reads (:312-566)
+CUBE_M = 50.0
+WINDOW_CUBES = (2, 2, 1)
+# added to the distance of a voxel outside the window, so that every such voxel sorts after every one inside
+_OUTSIDE_M = 1.0e4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,10 +81,19 @@ def _unweighted(cloud: PointCloud) -> PointCloud:
 def downsample_stacks(cur_corner: PointCloud, cur_surf: PointCloud, cfg: AloamMappingConfig):
     """The corner/surf *stacks* — current features voxel-downsampled at the
     map resolutions — are what both scan-to-map matching and the map fold
-    consume (laserCloudCornerStack/SurfStack, laserMapping.cpp:556-566)."""
-    c = voxel_downsample(cur_corner, cfg.line_res, out_capacity=cfg.stack_corner_capacity)
-    s = voxel_downsample(cur_surf, cfg.plane_res, out_capacity=cfg.stack_surf_capacity)
-    return _unweighted(c), _unweighted(s)
+    consume (laserCloudCornerStack/SurfStack, laserMapping.cpp:556-566).
+    Returns (corner stack, surf stack, the voxels their capacities cut off
+    [] int32 on the device): each stack is the first rows of the uncut
+    downsample, so the count costs no host sync."""
+
+    def cut(cloud: PointCloud, leaf: float, cap: int):
+        every = voxel_downsample(cloud, leaf, out_capacity=max(cap, cloud.capacity))
+        return (_unweighted(PointCloud(points=every.points[:cap], mask=every.mask[:cap])),
+                every.mask[cap:].sum(dtype=torch.int32))
+
+    c, c_cut = cut(cur_corner, cfg.line_res, cfg.stack_corner_capacity)
+    s, s_cut = cut(cur_surf, cfg.plane_res, cfg.stack_surf_capacity)
+    return c, s, c_cut + s_cut
 
 
 def mapping_step(
@@ -144,6 +167,34 @@ def mapping_step(
     return T
 
 
+def in_window(points, pos):
+    """True where `points` [N, 3] lie in laserMapping's 5 x 5 x 3 window of
+    50 m cubes around the cube of the sensor position `pos` [3]."""
+    cube = lambda p: torch.floor((p + 0.5 * CUBE_M) / CUBE_M)  # noqa: E731
+    reach = torch.tensor(WINDOW_CUBES, dtype=points.dtype, device=points.device)
+    return torch.all(torch.abs(cube(points) - cube(pos)) <= reach, dim=-1)
+
+
+def keep_near(cloud: PointCloud, pos, cap: int):
+    """The `cap` voxels of `cloud` (every valid row, in key order) that a
+    full map keeps: the nearest to `pos` inside the window first, then the
+    nearest outside it; ties in key order. Returns (the kept voxels as a
+    `cap`-row cloud in key order, keep [N] bool, in_window [N] bool). With
+    at most `cap` valid rows, all first, the result is their first `cap`
+    rows, bit for bit."""
+    valid = cloud.mask
+    inside = valid & in_window(cloud.points, pos)
+    dist = _norm(cloud.points - pos)
+    key = torch.where(valid, torch.where(inside, dist, dist + _OUTSIDE_M), torch.inf)
+    order = torch.sort(key, stable=True).indices
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(order.shape[0], device=order.device)
+    keep = valid & (rank < cap)
+    dest = torch.where(keep, torch.cumsum(keep.to(torch.int32), dim=0, dtype=torch.int32) - 1, cap)
+    out = PointCloud(points=_scatter_rows(cap, dest, cloud.points), mask=_scatter_rows(cap, dest, keep, fill=False))
+    return out, keep, inside
+
+
 def map_update(
     corner_map: PointCloud,
     surf_map: PointCloud,
@@ -154,18 +205,25 @@ def map_update(
 ):
     """Fold the registered features into the maps: transform, append,
     voxel-downsample at lineRes/planeRes, crop around the pose
-    (laserMapping.cpp:737-800, 905-910)."""
+    (laserMapping.cpp:737-800, 905-910), and keep each map's capacity
+    around the sensor (`keep_near`). Returns (corner map, surf map, the
+    voxels evicted [2] and those of them inside the window [2], corner then
+    surf, int32 on the device)."""
     pos = T[:3, 3]
 
-    def fold(m: PointCloud, cur: PointCloud, leaf: float, cap: int) -> PointCloud:
+    def fold(m: PointCloud, cur: PointCloud, leaf: float, cap: int):
         pts = torch.cat([m.points, transform_points(T, cur.points)], dim=0)
         msk = torch.cat([m.mask, cur.mask], dim=0)
         inside = torch.all(torch.abs(pts - pos) <= cfg.crop_radius, dim=-1)
-        return _unweighted(voxel_downsample(PointCloud(points=pts, mask=msk & inside), leaf, out_capacity=cap))
+        every = voxel_downsample(PointCloud(points=pts, mask=msk & inside), leaf, out_capacity=pts.shape[0])
+        out, keep, near = keep_near(_unweighted(every), pos, cap)
+        gone = every.mask & ~keep
+        return out, torch.stack([gone.sum(dtype=torch.int32), (gone & near).sum(dtype=torch.int32)])
 
-    new_corner = fold(corner_map, cur_corner, cfg.line_res, cfg.corner_map_capacity)
-    new_surf = fold(surf_map, cur_surf, cfg.plane_res, cfg.surf_map_capacity)
-    return new_corner, new_surf
+    new_corner, ev_corner = fold(corner_map, cur_corner, cfg.line_res, cfg.corner_map_capacity)
+    new_surf, ev_surf = fold(surf_map, cur_surf, cfg.plane_res, cfg.surf_map_capacity)
+    evicted = torch.stack([ev_corner, ev_surf])
+    return new_corner, new_surf, evicted[:, 0], evicted[:, 1]
 
 
 class AloamMapping:
@@ -191,7 +249,7 @@ class AloamMapping:
         pose. `features`: the sweep's less_sharp/less_flat clouds."""
         T_odom = np.asarray(T_odom, np.float32)
         guess = self.T_map_odom @ T_odom  # transformAssociateToMap
-        cur_corner, cur_surf = downsample_stacks(features.less_sharp, features.less_flat, self.cfg)
+        cur_corner, cur_surf, _ = downsample_stacks(features.less_sharp, features.less_flat, self.cfg)
         if self._initialized:
             T_map = mapping_step(self.corner_map, self.surf_map, cur_corner, cur_surf, guess, self.cfg)
             T_map = T_map.cpu().numpy()
@@ -199,7 +257,7 @@ class AloamMapping:
             T_map = guess
             self._initialized = True
         dev = self.corner_map.points.device
-        self.corner_map, self.surf_map = map_update(
+        self.corner_map, self.surf_map, _, _ = map_update(
             self.corner_map, self.surf_map, cur_corner, cur_surf, torch.as_tensor(T_map).to(dev), self.cfg
         )
         self.T_map_odom = (T_map @ np.linalg.inv(T_odom)).astype(np.float32)  # transformUpdate

@@ -9,6 +9,22 @@ that never waits for the device: the first-sweep and has-map selections are
 `torch.where`s on device flags, and the 4x4 inverse is `inv_ex`. So the
 only synchronisations are the pose copies: one per sweep in `update`, one
 per batch in `update_batch`.
+
+A sweep is traced in the run's tracer (`utils/watchdog.py`): spans
+`aloam.features`, `aloam.odometry`, `aloam.mapping` (the stacks and the
+scan-to-map refinement) and `aloam.fold` (the map fold and the map->odom
+correction), each with its host issue time and, on the card, the card's
+time between CUDA events at its ends (nothing waits on the card before
+the pose's copy, so where the host issues slower than the card runs, that
+is about the issue time too); `aloam.step` from the sweep's hand-over to
+its pose's copy. The counters ride on that copy, so they cost no sync of their own:
+`aloam_sweeps`; `aloam_capped`, selected feature rows and stack voxels that
+a cap cut off; `aloam_map_evicted` and `aloam_map_evicted_in_window`,
+voxels a full map's fold evicted (`mapping.keep_near`), all and those
+inside laserMapping's window; `aloam_corner_map` and `aloam_surf_map`,
+counted as each fold's change, so that a run's total is the maps'
+occupancy after its last fold, and `aloam_corner_map_peak` and
+`aloam_surf_map_peak`, whose totals are the largest occupancy the run saw.
 """
 
 from __future__ import annotations
@@ -21,9 +37,26 @@ import torch
 
 from ... import device as _default_device
 from ...ops.pointcloud import PointCloud
+from ...utils import watchdog
 from .feature_extraction import FeatureExtractionConfig, ScanFeatures, extract_features
 from .mapping import AloamMappingConfig, downsample_stacks, map_update, mapping_step
 from .odometry import AloamOdometryConfig, odometry_step
+
+
+@dataclasses.dataclass(frozen=True)
+class AloamConfig:
+    """The `aloam` section of the CLI's YAML: a sub-section for each stage's
+    own config, under its own keys. A-LOAM's launch parameters
+    (aloam_velodyne_HDL_64.launch) are `features.n_scans` (scan_line),
+    `features.min_range` (minimum_range), `mapping.line_res` and
+    `mapping.plane_res` (mapping_line_resolution, mapping_plane_resolution);
+    the port maps every sweep, the launch's skip 1. `features.capacity` is
+    the padded sweep's rows. A key left out keeps the value below: the CLI's
+    A-LOAM front end before the section existed."""
+
+    features: FeatureExtractionConfig = FeatureExtractionConfig(min_range=2.5, max_less_flat=16384)
+    odometry: AloamOdometryConfig = AloamOdometryConfig()
+    mapping: AloamMappingConfig = AloamMappingConfig()
 
 
 @dataclasses.dataclass
@@ -76,37 +109,48 @@ def aloam_step(
     fe_cfg: FeatureExtractionConfig,
     odo_cfg: AloamOdometryConfig,
     map_cfg: AloamMappingConfig,
-) -> Tuple[AloamState, torch.Tensor, torch.Tensor]:
-    """One sweep end-to-end. Returns (new state, T_map [4,4], T_odom [4,4])."""
-    f: ScanFeatures = extract_features(points, mask, fe_cfg)
+) -> Tuple[AloamState, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One sweep end-to-end, traced. Returns (new state, T_map [4,4],
+    T_odom [4,4], counts [5] int32 on the device: rows capped, voxels
+    evicted, those inside the window, and the corner and surf maps'
+    occupancy after the fold)."""
+    dev = points.device
+    with watchdog.span("aloam.features", device=dev):
+        f: ScanFeatures = extract_features(points, mask, fe_cfg)
 
     # frame-to-frame odometry vs the previous sweep's less-sharp/less-flat
     # features (laserOdometry.cpp:278-506). The first sweep has no previous
     # features: the step still runs (masked empty clouds give no
     # correspondences) and the identity is selected on the device.
-    T_rel = odometry_step(
-        state.prev_less_sharp,
-        state.prev_less_sharp_ring,
-        state.prev_less_flat,
-        state.prev_less_flat_ring,
-        f.sharp,
-        f.flat,
-        state.T_rel,
-        odo_cfg,
-    )
-    eye = torch.eye(4, dtype=torch.float32, device=T_rel.device)
-    T_rel = torch.where(state.has_prev, T_rel, eye)
-    T_world = state.T_world @ T_rel
+    with watchdog.span("aloam.odometry", device=dev):
+        T_rel = odometry_step(
+            state.prev_less_sharp,
+            state.prev_less_sharp_ring,
+            state.prev_less_flat,
+            state.prev_less_flat_ring,
+            f.sharp,
+            f.flat,
+            state.T_rel,
+            odo_cfg,
+        )
+        eye = torch.eye(4, dtype=torch.float32, device=T_rel.device)
+        T_rel = torch.where(state.has_prev, T_rel, eye)
+        T_world = state.T_world @ T_rel
 
     # scan-to-map refinement (laserMapping.cpp:571-727) on the res-matched
     # feature stacks (downSizeFilterCorner/Surf, :556-566)
-    guess = state.T_map_odom @ T_world
-    stack_corner, stack_surf = downsample_stacks(f.less_sharp, f.less_flat, map_cfg)
-    T_map = mapping_step(state.corner_map, state.surf_map, stack_corner, stack_surf, guess, map_cfg)
-    T_map = torch.where(state.map_init, T_map, guess)
-    corner_map, surf_map = map_update(state.corner_map, state.surf_map, stack_corner, stack_surf, T_map, map_cfg)
-    # transformUpdate (laserMapping.cpp:148-152): wmap_T_wodom correction
-    T_map_odom = T_map @ torch.linalg.inv_ex(T_world).inverse
+    with watchdog.span("aloam.mapping", device=dev):
+        guess = state.T_map_odom @ T_world
+        stack_corner, stack_surf, stack_cut = downsample_stacks(f.less_sharp, f.less_flat, map_cfg)
+        T_map = mapping_step(state.corner_map, state.surf_map, stack_corner, stack_surf, guess, map_cfg)
+        T_map = torch.where(state.map_init, T_map, guess)
+    with watchdog.span("aloam.fold", device=dev):
+        corner_map, surf_map, evicted, in_window = map_update(
+            state.corner_map, state.surf_map, stack_corner, stack_surf, T_map, map_cfg)
+        # transformUpdate (laserMapping.cpp:148-152): wmap_T_wodom correction
+        T_map_odom = T_map @ torch.linalg.inv_ex(T_world).inverse
+        counts = torch.stack([f.capped + stack_cut, evicted.sum(), in_window.sum(), corner_map.num_valid(),
+                              surf_map.num_valid()])
 
     done = torch.ones((), dtype=torch.bool, device=T_rel.device)
     new_state = AloamState(
@@ -122,7 +166,7 @@ def aloam_step(
         has_prev=done,
         map_init=done,
     )
-    return new_state, T_map, T_world
+    return new_state, T_map, T_world, counts
 
 
 def aloam_drive(
@@ -138,7 +182,7 @@ def aloam_drive(
     the device)."""
     poses = []
     for pts, msk in zip(points_seq, mask_seq):
-        state, T_map, _ = aloam_step(state, pts, msk, fe_cfg, odo_cfg, map_cfg)
+        state, T_map, _, _ = aloam_step(state, pts, msk, fe_cfg, odo_cfg, map_cfg)
         poses.append(T_map)
     return state, torch.stack(poses)
 
@@ -160,6 +204,7 @@ class AloamPipeline:
         self.device = _default_device(device)
         self.state = init_aloam_state(fe_cfg, map_cfg, self.device)
         self.T0 = np.eye(4, dtype=np.float32)
+        self._maps = [0, 0, 0, 0]  # corner and surf occupancy after the last fold, then their peaks
 
     def set_init_pose(self, pose) -> None:
         self.T0 = np.asarray(pose, np.float32)
@@ -170,7 +215,10 @@ class AloamPipeline:
         overlap the device work of the previous sweep."""
         cap = self.fe_cfg.capacity
         points = np.asarray(points, np.float32)
-        n = min(len(points), cap)
+        n = len(points)
+        if n > cap:
+            raise ValueError(f"a sweep of {n} returns is over the padded sweep's {cap} rows: raise the "
+                             f"configuration's aloam.features.capacity (a sweep is never cut)")
         pts = torch.zeros((cap, 3), dtype=torch.float32)
         msk = torch.zeros(cap, dtype=torch.bool)
         pts[:n] = torch.from_numpy(points[:n])
@@ -182,10 +230,27 @@ class AloamPipeline:
         return pts.to(self.device), msk.to(self.device)
 
     def update(self, points, mask=None, bboxes=None, preloaded=None):
-        """FrontEnd-compatible API: raw sweep in, world pose out (one sync)."""
-        pts, msk = preloaded if preloaded is not None else self.preload(points, mask)
-        self.state, T_map, _ = aloam_step(self.state, pts, msk, self.fe_cfg, self.odo_cfg, self.map_cfg)
-        return (self.T0 @ T_map.cpu().numpy()).astype(np.float32), False
+        """FrontEnd-compatible API: raw sweep in, world pose out (one sync:
+        the pose and the sweep's counts in one copy)."""
+        with watchdog.span("aloam.step"):
+            pts, msk = preloaded if preloaded is not None else self.preload(points, mask)
+            self.state, T_map, _, counts = aloam_step(self.state, pts, msk, self.fe_cfg, self.odo_cfg, self.map_cfg)
+            out = torch.cat([T_map.reshape(-1).to(torch.float64), counts.to(torch.float64)]).cpu().numpy()
+            T_map = out[:16].astype(np.float32).reshape(4, 4)
+            self._count([int(c) for c in out[16:]])
+        return (self.T0 @ T_map).astype(np.float32), False
+
+    def _count(self, counts) -> None:
+        capped, evicted, in_window, corner, surf = counts
+        watchdog.count("aloam_sweeps")
+        for name, n in (("aloam_capped", capped), ("aloam_map_evicted", evicted),
+                        ("aloam_map_evicted_in_window", in_window)):
+            watchdog.count(name, n)
+        prev = self._maps
+        self._maps = [corner, surf, max(prev[2], corner), max(prev[3], surf)]
+        for name, a, b in zip(("aloam_corner_map", "aloam_surf_map", "aloam_corner_map_peak", "aloam_surf_map_peak"),
+                              prev, self._maps):
+            watchdog.count(name, b - a)
 
     def update_batch(self, frames):
         """Feed a list of (points, mask) sweeps through `aloam_drive`; returns

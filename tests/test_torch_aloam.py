@@ -153,7 +153,7 @@ class TestStages:
         cfg_j = dataclasses.replace(MAP_J, knn=knn)
         cfg_t = dataclasses.replace(MAP_T, knn=knn)
         jc, jsurf = jmapping.downsample_stacks(jf.less_sharp, jf.less_flat, cfg_j)
-        tc, tsurf = ta.downsample_stacks(_port_cloud(jf.less_sharp), _port_cloud(jf.less_flat), cfg_t)
+        tc, tsurf, _ = ta.downsample_stacks(_port_cloud(jf.less_sharp), _port_cloud(jf.less_flat), cfg_t)
         np.testing.assert_array_equal(_np(tsurf.mask), np.asarray(jsurf.mask))
         guess = np.array(js.T_map_odom @ js.T_world)
         guess[:3, 3] += np.float32([0.8, 0.05, 0.0])  # one sweep ahead, as odometry would predict

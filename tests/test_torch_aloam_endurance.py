@@ -147,13 +147,14 @@ def test_pooled_frames_are_the_same_frames():
 def test_aloam_harness_through_the_cli_on_the_cpu(aloam_run, capsys):
     """`mapping --front-end aloam` on the CPU: exit 0, loops within
     LOOP_TOL, every sweep within the front end's rows (the CLI's own rule
-    would have asked 65 536), the maps' fill every frame within their
+    asks the configuration's aloam.features.capacity, 131 072 without a
+    section, never fewer under --synthetic), the maps' fill every frame within their
     capacities and in the memory samples, no kernel launched on the CPU,
     and the record's A-LOAM arrays."""
     d, run, rep, record, _ = aloam_run
     assert rep["rc"] == 0 and rep["front_end"] == "aloam" and rep["frames"] == len(d)
     assert rep["loops"] and all(lp["error"] <= E.LOOP_TOL for lp in rep["loops"])
-    assert rep["capacity"] == ROWS and rep["cli_capacity"] == 65536 and rep["cut_frames"] == []
+    assert rep["capacity"] == ROWS and rep["cli_capacity"] == 131072 and rep["cut_frames"] == []
     assert E.check(rep, min_keyframes=10, min_loops=1, min_returns=2000) == []
     assert rep["launches"] == {"ndt_newton": 0, "ndt_reduce_fused": 0, "window_knn": 0, "gather_stats_onehot": 0}
     assert run.fill.shape == (len(d), 2) and (run.fill > 0).all() and rep["at_capacity"] == []
@@ -195,30 +196,33 @@ def test_check_fails_a_cut_sweep_or_a_full_map(aloam_run):
 def test_fold_drops_names_the_voxels_a_full_map_dropped(aloam_run):
     """fold_drops on a kept frame folded into a corner map of a third of its
     voxels: the voxels offered are the uncapped fold's, the capped fold
-    keeps the first `capacity` in key order and drops the rest, those of
-    the largest x (none kept lies a leaf or more beyond the least dropped);
-    a map under its capacity dropped nothing."""
-    from lidar_slam_tpu_torch.pipeline.aloam.mapping import downsample_stacks, map_update
+    keeps the `capacity` of them nearest the sensor (keep_near, every one
+    in laserMapping's window here) and drops the rest, none of them nearer
+    the sensor than a kept one, and names the dropped voxels' x range; a
+    map under its capacity dropped nothing."""
+    from lidar_slam_tpu_torch.pipeline.aloam.mapping import downsample_stacks, keep_near, map_update
 
     _, run, _, _, _ = aloam_run
     e = run.picks["last frame"]
     before, after, pose = e["before"], e["after"], e["pose"]
-    stacks = downsample_stacks(after.prev_less_sharp, after.prev_less_flat, MAP)
+    stacks = downsample_stacks(after.prev_less_sharp, after.prev_less_flat, MAP)[:2]
     T = torch.as_tensor(pose)
     whole = map_update(before.corner_map, before.surf_map, *stacks, T, MAP)
     offered = int(whole[0].mask.sum())
     cap = offered // 3
     small = dataclasses.replace(MAP, corner_map_capacity=cap)
-    corner, surf = map_update(before.corner_map, before.surf_map, *stacks, T, small)
-    assert int(corner.mask.sum()) == cap and torch.equal(corner.points, whole[0].points[:cap])
+    corner, surf, _, _ = map_update(before.corner_map, before.surf_map, *stacks, T, small)
+    kept, keep, inside = keep_near(whole[0], T[:3, 3], cap)
+    assert int(corner.mask.sum()) == cap and torch.equal(corner.points, kept.points)
+    assert bool(inside[whole[0].mask].all())
     fill = [cap, int(surf.mask.sum())]
     (c_off, c_drop, x_lo, x_hi), (s_off, s_drop, _, _) = E.fold_drops(
         before, dataclasses.replace(after, corner_map=corner, surf_map=surf), pose, small, fill)
     assert (c_off, c_drop) == (offered, offered - cap) and (s_off, s_drop) == (fill[1], 0)
-    kept_x = corner.points[:, 0]
-    dropped_x = whole[0].points[cap:offered, 0]
-    assert x_lo == pytest.approx(float(dropped_x.min())) and x_hi == pytest.approx(float(dropped_x.max()))
-    assert float(kept_x.max()) < x_lo + MAP.line_res
+    dropped = whole[0].points[whole[0].mask & ~keep]
+    assert x_lo == pytest.approx(float(dropped[:, 0].min())) and x_hi == pytest.approx(float(dropped[:, 0].max()))
+    near = lambda p: torch.linalg.norm(p - T[:3, 3], dim=-1)  # noqa: E731
+    assert float(near(corner.points[corner.mask]).max()) <= float(near(dropped).min())
 
 
 def test_endurance_witness_replays_the_aloam_record(aloam_run, capsys):
@@ -320,13 +324,11 @@ def test_harness_scripts_leave_jax_out():
     assert out.stdout.splitlines()[-1] == "[]", out.stdout
 
 
-def test_full_map_fold_drops_the_largest_x_as_the_reference():
-    """The JAX package's map_update at capacity keeps and drops the same
-    voxels as the port's (the same masks, points within MAP_TOL): the
-    voxels of the largest x go, wherever the sensor is. At the endurance
-    drive's depth this empties the corner map around the sensor at the
-    corridor's +x end (ROADMAP section C); a state where the sensor sits at
-    the largest x loses every voxel near it."""
+def _corridor_fold(cap, pose_x, far=0):
+    """The port's and the JAX package's map_update of a corridor's
+    corner map (edge points along 60 m of x, and `far` more 150-170 m on,
+    outside laserMapping's window of a sensor at x = `pose_x` but inside
+    the +-150 m box) with a stack seen there, at corner capacity `cap`."""
     from lidar_slam_tpu.ops.pointcloud import PointCloud as JCloud
     from lidar_slam_tpu.pipeline.aloam import mapping as jmapping
 
@@ -334,13 +336,14 @@ def test_full_map_fold_drops_the_largest_x_as_the_reference():
     from lidar_slam_tpu_torch.pipeline.aloam import mapping as tmapping
 
     rng = np.random.default_rng(5)
-    # a corridor's corner map: edge points along 60 m of x, and a stack seen from the +x end
-    old = rng.uniform([-5, -8, 0], [55, 8, 6], (6000, 3)).astype(np.float32)
-    new = rng.uniform([45, -8, 0], [60, 8, 6], (1500, 3)).astype(np.float32)
+    old = rng.uniform([-5, -8, 0], [55, 8, 6], (6000, 3))
+    if far:
+        old = np.concatenate([old, rng.uniform([pose_x + 130, -8, 0], [pose_x + 145, 8, 6], (far, 3))])
+    old = old.astype(np.float32)
     pose = np.eye(4, dtype=np.float32)
-    pose[:3, 3] = (55.0, 0.0, 1.8)
+    pose[:3, 3] = (pose_x, 0.0, 1.8)
+    new = rng.uniform([pose_x - 10, -8, 0], [pose_x + 5, 8, 6], (1500, 3)).astype(np.float32)
     local = (new - pose[:3, 3]).astype(np.float32)
-    cap = 2048
     cfg_j = jmapping.AloamMappingConfig(corner_map_capacity=cap, surf_map_capacity=cap)
     cfg_t = convert.config_from_fields(tmapping.AloamMappingConfig, dataclasses.asdict(cfg_j))
     surf = np.zeros((4, 3), np.float32)
@@ -348,18 +351,91 @@ def test_full_map_fold_drops_the_largest_x_as_the_reference():
                              JCloud(points=jnp.asarray(surf), mask=jnp.zeros(4, bool)),
                              JCloud(points=jnp.asarray(local), mask=jnp.ones(len(local), bool)),
                              JCloud(points=jnp.asarray(surf), mask=jnp.zeros(4, bool)), jnp.asarray(pose), cfg_j)
-    tm = tmapping.map_update(TCloud(points=torch.as_tensor(old), mask=torch.ones(len(old), dtype=torch.bool)),
-                             TCloud(points=torch.as_tensor(surf), mask=torch.zeros(4, dtype=torch.bool)),
-                             TCloud(points=torch.as_tensor(local), mask=torch.ones(len(local), dtype=torch.bool)),
-                             TCloud(points=torch.as_tensor(surf), mask=torch.zeros(4, dtype=torch.bool)),
-                             torch.as_tensor(pose), cfg_t)
-    a, b = np.asarray(jm[0].mask), tm[0].mask.numpy()
+    args = (TCloud(points=torch.as_tensor(old), mask=torch.ones(len(old), dtype=torch.bool)),
+            TCloud(points=torch.as_tensor(surf), mask=torch.zeros(4, dtype=torch.bool)),
+            TCloud(points=torch.as_tensor(local), mask=torch.ones(len(local), dtype=torch.bool)),
+            TCloud(points=torch.as_tensor(surf), mask=torch.zeros(4, dtype=torch.bool)), torch.as_tensor(pose))
+    return jm, tmapping.map_update(*args, cfg_t), args, cfg_t, pose
+
+
+def test_full_map_fold_keeps_the_window_around_the_sensor():
+    """Under capacity the port's fold is the JAX package's (the same masks,
+    points within MAP_TOL) and its own earlier fold's, voxel_downsample's
+    first `capacity` voxels, to the bit, and evicts nothing. Past capacity
+    it keeps the map around the sensor (ROADMAP section C): with the sensor
+    at the corridor's +x end the voxels farthest from it go, where the JAX
+    fold drops the largest x and so every voxel near the sensor; voxels
+    outside laserMapping's 5 x 5 x 3 window of 50 m cubes go before any
+    inside it, however near; the counters are the masks' sums."""
+    from lidar_slam_tpu_torch.geom.se3 import transform_points
+    from lidar_slam_tpu_torch.ops.pointcloud import PointCloud as TCloud, voxel_downsample
+    from lidar_slam_tpu_torch.pipeline.aloam import mapping as tmapping
+
+    jm, (corner, _, evicted, in_window), args, cfg, pose = _corridor_fold(16384, 55.0)
+    a, b = np.asarray(jm[0].mask), corner.mask.numpy()
     np.testing.assert_array_equal(a, b)
-    np.testing.assert_allclose(np.asarray(jm[0].points)[a], tm[0].points.numpy()[b], rtol=0, atol=aloam_witness.MAP_TOL)
-    assert a.sum() == cap
-    kept_x = tm[0].points.numpy()[b][:, 0]
-    assert kept_x.max() < 35.0  # everything within 20 m of the sensor at x = 55 is gone
-    assert not np.any(np.linalg.norm(tm[0].points.numpy()[b][:, :2] - pose[:2, 3], axis=1) < 20.0)
+    np.testing.assert_allclose(np.asarray(jm[0].points)[a], corner.points.numpy()[b], rtol=0,
+                               atol=aloam_witness.MAP_TOL)
+    old, _, stack, _, T = args
+    pts = torch.cat([old.points, transform_points(T, stack.points)])
+    earlier = voxel_downsample(TCloud(points=pts, mask=torch.ones(len(pts), dtype=torch.bool)), cfg.line_res,
+                               out_capacity=16384)
+    assert torch.equal(earlier.points, corner.points) and torch.equal(earlier.mask, corner.mask)
+    assert evicted.tolist() == [0, 0] and in_window.tolist() == [0, 0]
+
+    cap = 2048
+    jm, (corner, _, evicted, in_window), args, cfg, pose = _corridor_fold(cap, 55.0)
+    kept = corner.points.numpy()[corner.mask.numpy()]
+    jkept = np.asarray(jm[0].points)[np.asarray(jm[0].mask)]
+    assert len(kept) == len(jkept) == cap
+    near = np.linalg.norm(kept[:, :2] - pose[:2, 3], axis=1)
+    assert jkept[:, 0].max() < 35.0 and near.max() < 20.0  # JAX keeps nothing within 20 m, the port nothing beyond
+    offered = int(tmapping.map_update(*args[:4], args[4], dataclasses.replace(cfg, corner_map_capacity=65536))[0]
+                  .mask.sum())
+    assert evicted.tolist() == [offered - cap, 0] and in_window.tolist() == [offered - cap, 0]
+
+    jm, (corner, _, evicted, in_window), args, cfg, pose = _corridor_fold(cap, 55.0, far=1000)
+    whole = tmapping.map_update(*args[:4], args[4], dataclasses.replace(cfg, corner_map_capacity=65536))[0]
+    inside = tmapping.in_window(whole.points, args[4][:3, 3]) & whole.mask
+    outside = whole.mask & ~inside
+    assert int(outside.sum()) > 0 and int(inside.sum()) > cap  # the far voxels go first, then the farthest inside
+    kept = corner.points[corner.mask]
+    assert not bool(tmapping.in_window(kept, args[4][:3, 3]).logical_not().any())
+    assert evicted.tolist() == [int(whole.mask.sum()) - cap, 0]
+    assert in_window.tolist() == [int(inside.sum()) - cap, 0]
+
+
+@pytest.mark.parametrize("offered", [4096, 4097])
+def test_fold_keeps_a_near_window_voxel_over_a_far_outer_one(offered):
+    """keep_near on a full map: the voxel just inside the window is kept
+    over one just outside it that lies nearer the sensor (the window's
+    cubes, not the distance, come first); the counts kept are the masks'."""
+    from lidar_slam_tpu_torch.ops.pointcloud import PointCloud as TCloud
+    from lidar_slam_tpu_torch.pipeline.aloam.mapping import CUBE_M, keep_near
+
+    pos = torch.tensor([10.0, 0.0, 1.8])
+    rng = np.random.default_rng(3)
+    pts = torch.as_tensor(rng.uniform([-20, -8, 0], [40, 8, 6], (offered, 3)).astype(np.float32))
+    # the sensor's cube spans x in [-25, 25); the window reaches x < 125 and z < 75 (one cube up)
+    pts[0] = torch.tensor([124.0, 0.0, 1.0])  # inside, 114 m away
+    pts[1] = torch.tensor([10.0, 0.0, 80.0])  # outside (two cubes up), 78 m away
+    cloud = TCloud(points=pts, mask=torch.ones(offered, dtype=torch.bool))
+    out, keep, inside = keep_near(cloud, pos, 4096)
+    assert CUBE_M == 50.0 and bool(inside[0]) and not bool(inside[1])
+    assert bool(keep[0]) and bool(keep[1]) == (offered == 4096)
+    assert int(keep.sum()) == int(out.mask.sum()) == 4096
+    assert torch.equal(out.points[out.mask], pts[keep])
+
+
+def test_aloam_witness_names_a_full_fold_its_rule():
+    """aloam_witness.map_verdict: a map that differs where JAX's fold
+    filled the capacity departs by the fold's rule, no failure; under
+    capacity a difference fails."""
+    tol = aloam_witness.MAP_TOL
+    assert aloam_witness.map_verdict(True, 0.0, 100, 4096) == "equal"
+    assert aloam_witness.map_verdict(False, 0.0, 4096, 4096) == "the fold's rule"
+    assert aloam_witness.map_verdict(True, 10 * tol, 4096, 4096) == "the fold's rule"
+    assert aloam_witness.map_verdict(False, 0.0, 4000, 4096) == "differs"
 
 
 def test_aloam_witness_splits_down_to_the_knife_edge(aloam_run, monkeypatch):
